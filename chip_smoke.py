@@ -8,17 +8,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the CUDA kernels from l2hmc_torch/csrc/ (nvcc, -Xptxas -v);
   3. hold each kernel against its plain PyTorch version on the card, at
      the main-path shape (2048 x 2x16x16, float32 and float64), a ragged
-     one (37 x 2x8x12) and the 64x64 lattice; gradcheck the
-     autograd.Function at float64;
+     one (37 x 2x8x12), the 64x64 lattice, and the shapes that take the
+     kernels' other paths: odd nt*nx (37 x 2x5x7, no 16-byte copies),
+     32x32, one chain, more chains than one pass of the persistent grid
+     holds (5000), and a view that is not 16-byte aligned; the backward
+     also without gS, against the plain version with gS = 0; gradcheck
+     the autograd.Function at float64;
   4. the main path: `build_experiment(...).run()` at the default U(1)
      width (2048 chains, 16x16, nleapfrog 8, units [16]*4, BatchNorm and
      dropout on) for one era of 20 train steps, then 20 eval and 20 HMC
      draws, with the kernels' launch counters set to 0 just before and
      read just after; then one train, eval and HMC step each, counted
      alone against the launches expected per step;
-  5. times, with CUDA events after warmup: each kernel and its plain
+  5. one trajectory's launches (17 forward, 17 backward) captured in a
+     CUDA graph, replayed, and held bit for bit against the eager calls;
+  6. times, with CUDA events after warmup: each kernel and its plain
      version at the main-path shape, a train, an eval and an HMC step;
-     the device's busy share over a few train steps (torch.profiler).
+     the kernels' device time (torch.profiler), and per shape (16x16,
+     64x64 float32 and float64) their event, device, graph-replay and
+     cold-L2 times with bytes and bound (l2hmc_torch.utils.kernel_times);
+     the device's busy share over a few train steps.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound;
 the last is {"ok": true, "device": {...}}.
@@ -32,32 +41,15 @@ import glob
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
-
-#: H100 SXM data sheet: HBM rate, float32 and float64 rates outside the
-#: tensor cores (dense), at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
-#: operations per lattice site (sin and cos counted one each): forward
-#: W (3), sin, cos, 1 - cos, the action sum, 2 subs + 2 muls of the force;
-#: backward W (3), A gF (3), cos, the product, 2 subs, 2 muls, 2 fmas
-FWD_OPS_PER_SITE, BWD_OPS_PER_SITE = 11, 15
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True, timeout=60)
-    return r.stdout.strip().splitlines()[0]
 
 
 def replaces(func: str) -> str:
@@ -71,40 +63,7 @@ def replaces(func: str) -> str:
     raise RuntimeError(f"{func} not found in {path}")
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 5) -> float:
-    """Mean device time of fn over reps, between two CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def profiled(torch, fn, reps: int):
-    """torch.profiler over reps calls of fn (after one warm call)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return prof
-
-
-def device_kernels(torch, prof) -> dict:
-    """{kernel name: (count, device us)} of the profiled window."""
-    from torch.autograd import DeviceType
-    return {e.key: (e.count, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+OFF_ALIGNMENT = "a view that is not 16-byte aligned"
 
 
 def finite(v) -> bool:
@@ -121,6 +80,10 @@ def main() -> int:
         return 1
     from l2hmc_torch.experiment import build_experiment
     from l2hmc_torch.ops.kernels import u1_force as uk
+    from l2hmc_torch.utils import kernel_times as kt
+    from l2hmc_torch.utils.kernel_times import (card_line, cuda_ms,
+                                                device_kernels, device_ms,
+                                                profiled)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -138,20 +101,38 @@ def main() -> int:
     gen = torch.Generator(dev).manual_seed(0)
     beta = 4.0
     errs = {}
-    for nb, nt, nx, dtype in [(2048, 16, 16, torch.float32),
-                              (2048, 16, 16, torch.float64),
-                              (37, 8, 12, torch.float32),
-                              (64, 64, 64, torch.float32),
-                              (64, 64, 64, torch.float64)]:
+    # (chains, nt, nx, dtype, what the shape is there for)
+    for nb, nt, nx, dtype, why in [
+            (2048, 16, 16, torch.float32, "main path"),
+            (2048, 16, 16, torch.float64, "main path, float64"),
+            (37, 8, 12, torch.float32, "ragged, nx not a power of two"),
+            (64, 64, 64, torch.float32, "a block per chain"),
+            (64, 64, 64, torch.float64, "a block per chain, float64"),
+            (1500, 64, 64, torch.float32, "a block per chain, several passes"),
+            (37, 5, 7, torch.float32, "odd nt*nx: ordinary loads"),
+            (37, 5, 7, torch.float64, "odd nt*nx, float64"),
+            (300, 32, 32, torch.float32, "32x32: a warp per chain"),
+            (1, 16, 16, torch.float32, "one chain"),
+            (5000, 16, 16, torch.float32, "more than one pass of the grid"),
+            (100000, 4, 4, torch.float64, "many passes, deep ring"),
+            (2047, 16, 16, torch.float32, OFF_ALIGNMENT)]:
         f32 = dtype == torch.float32
-        x = (torch.rand((nb, 2 * nt * nx), generator=gen, device=dev,
-                        dtype=dtype) * 2 - 1) * math.pi
+        shape = (nb, 2 * nt * nx)
+        x = (torch.rand(shape, generator=gen, device=dev, dtype=dtype) * 2
+             - 1) * math.pi
+        if why == OFF_ALIGNMENT:
+            x = kt.offset_view(x)
+            assert x.data_ptr() % 16 != 0 and x.is_contiguous()
         f, a = uk.force_action(x, beta, nt, nx)
         fp, ap = uk.force_action_plain(x, beta, nt, nx)
         gf = torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
         gs = torch.randn((nb,), generator=gen, device=dev, dtype=dtype)
         b = uk.force_action_bwd(x, gf, gs, f, beta, nt, nx)
         bp = uk.force_action_bwd_plain(x, gf, gs, f, beta, nt, nx)
+        # gS absent (what the training path sends) against gS = 0
+        b0 = uk.force_action_bwd(x, gf, None, None, beta, nt, nx)
+        b0p = uk.force_action_bwd_plain(x, gf, torch.zeros_like(gs), f, beta,
+                                        nt, nx)
         torch.cuda.synchronize()
         # force: atol 2e-5 (f32, as the Pallas kernel is held) / 1e-12
         # (f64); action: rtol 2e-5 / 1e-12; backward (values up to ~30 at
@@ -161,13 +142,16 @@ def main() -> int:
         torch.testing.assert_close(a, ap, atol=0, rtol=2e-5 if f32 else 1e-12)
         torch.testing.assert_close(b, bp, atol=1e-4 if f32 else 1e-10,
                                    rtol=0)
+        torch.testing.assert_close(b0, b0p, atol=1e-4 if f32 else 1e-10,
+                                   rtol=0)
         err = {"fwd": float((f - fp).abs().max()),
                "act_rel": float(((a - ap).abs() / ap.abs()).max()),
-               "bwd": float((b - bp).abs().max())}
+               "bwd": float((b - bp).abs().max()),
+               "bwd_no_gs": float((b0 - b0p).abs().max())}
         errs[(nb, nt, nx, str(dtype))] = err
         emit({"phase": "compare", "shape": [nb, 2 * nt * nx], "nt": nt,
               "nx": nx, "dtype": str(dtype).replace("torch.", ""),
-              "max_abs_err": err})
+              "why": why, "max_abs_err": err})
     xg = (torch.rand((3, 2 * 4 * 4), generator=gen, device=dev,
                      dtype=torch.float64) * 2 - 1) * math.pi
     assert torch.autograd.gradcheck(
@@ -229,26 +213,46 @@ def main() -> int:
           "per_step": {k: {"u1_force_fwd": v[0], "u1_force_bwd": v[1]}
                        for k, v in per_step.items()}})
 
-    # -- 5. times -------------------------------------------------------------
+    # -- 5. one trajectory's launches in a CUDA graph ---------------------------
     nb, nt, nx = cfg.dynamics.nchains, *cfg.dynamics.latvolume
     xk = (torch.rand((nb, 2 * nt * nx), generator=gen, device=dev) * 2 - 1) \
         * math.pi
-    fk, _ = uk.force_action(xk, beta, nt, nx)
+    fk, ak = uk.force_action(xk, beta, nt, nx)
     gk = torch.randn(xk.shape, generator=gen, device=dev)
     gsk = torch.randn((nb,), generator=gen, device=dev)
-    reps = 200
-    t = {
-        "fwd_plain": cuda_ms(torch, lambda: uk.force_action_plain(
-            xk, beta, nt, nx), reps),
-        "fwd": cuda_ms(torch, lambda: uk.force_action(xk, beta, nt, nx), reps),
-        "bwd": cuda_ms(torch, lambda: uk.force_action_bwd(
-            xk, gk, gsk, fk, beta, nt, nx), reps),
-        "bwd_plain": cuda_ms(torch, lambda: uk.force_action_bwd_plain(
-            xk, gk, gsk, fk, beta, nt, nx), reps),
+    calls = {
+        "fwd": lambda i=0: uk.force_action(xk, beta, nt, nx),
+        "bwd": lambda i=0: uk.force_action_bwd(xk, gk, gsk, fk, beta, nt, nx),
+        # what the training path sends: the action unused, gS absent
+        "bwd_no_gs": lambda i=0: uk.force_action_bwd(xk, gk, None, None, beta,
+                                                     nt, nx),
     }
+    n_graph = 2 * nlf + 1
+    bk0 = calls["bwd_no_gs"]()
+    replay_ms = {}
+    for key, eager in [("fwd", (fk, ak)), ("bwd_no_gs", (bk0,))]:
+        replay_ms[key], outs = kt.graph_replay(calls[key], n_graph)
+        torch.cuda.synchronize()
+        for out in outs:
+            out = out if isinstance(out, tuple) else (out,)
+            assert all(torch.equal(o, e) for o, e in zip(out, eager)), key
+    emit({"phase": "graph_capture", "card": card, "launches_per_graph":
+          n_graph, "equal_to_eager": True, "replay_ms_per_launch": replay_ms})
+
+    # -- 6. times -------------------------------------------------------------
+    reps, batches = 200, 5      # the median of 5 means over 200 calls
+    t = {key: cuda_ms(fn, reps, batches=batches) for key, fn in [
+        ("fwd_plain", lambda: uk.force_action_plain(xk, beta, nt, nx)),
+        ("fwd", calls["fwd"]),
+        ("bwd", calls["bwd"]),
+        ("bwd_no_gs", calls["bwd_no_gs"]),
+        ("bwd_no_gs_plain", lambda: uk.force_action_bwd_plain(
+            xk, gk, None, None, beta, nt, nx)),
+        ("bwd_plain", lambda: uk.force_action_bwd_plain(
+            xk, gk, gsk, fk, beta, nt, nx))]}
     emit({"phase": "kernel_times", "card": card, "shape": [nb, 2 * nt * nx],
-          "dtype": "float32", "reps": reps, "ms": t})
-    step_ms = {job: cuda_ms(torch, fn, 20 if job == "train" else 50,
+          "dtype": "float32", "reps": reps, "batches": batches, "ms": t})
+    step_ms = {job: cuda_ms(fn, 20 if job == "train" else 50,
                             warmup=3) for job, fn in steps.items()}
     emit({"phase": "step_times", "card": card, "ms": step_ms,
           "nchains": {"train": nb, "eval": int(xe.shape[0]),
@@ -258,31 +262,26 @@ def main() -> int:
     # whatever the host's enqueue rate imposes), and the train step's
     # device busy share, kernels per step and host hot spots
     k_reps = 50
-    kernel_dev_ms = {}
-    for key, fn in [
-            ("fwd", lambda: uk.force_action(xk, beta, nt, nx)),
-            ("fwd_plain", lambda: uk.force_action_plain(xk, beta, nt, nx)),
-            ("bwd", lambda: uk.force_action_bwd(xk, gk, gsk, fk, beta, nt,
-                                                nx)),
-            ("bwd_plain", lambda: uk.force_action_bwd_plain(
-                xk, gk, gsk, fk, beta, nt, nx))]:
-        prof = profiled(torch, fn, k_reps)
-        kernel_dev_ms[key] = {
-            "device_ms_per_call": sum(us for _, us in
-                                      device_kernels(torch, prof).values())
-            / k_reps / 1e3,
-            "kernels_per_call": sum(c for c, _ in
-                                    device_kernels(torch, prof).values())
-            / k_reps}
+    kernel_dev_ms = {key: device_ms(fn, k_reps) for key, fn in [
+        ("fwd", calls["fwd"]),
+        ("fwd_plain", lambda: uk.force_action_plain(xk, beta, nt, nx)),
+        ("bwd", calls["bwd"]),
+        ("bwd_no_gs", calls["bwd_no_gs"]),
+        ("bwd_plain", lambda: uk.force_action_bwd_plain(
+            xk, gk, gsk, fk, beta, nt, nx))]}
     emit({"phase": "kernel_device_times", "card": card, "reps": k_reps,
           "shape": [nb, 2 * nt * nx], "dtype": "float32",
           "profiler": kernel_dev_ms})
+    # per shape: event, device, graph-replay and cold-L2 times, bytes, bound
+    for shape in kt.SHAPES:
+        emit({"phase": "kernel_times_by_shape", "card": card,
+              **kt.measure(uk, *shape)})
 
     n_prof = 3
     t0 = time.perf_counter()
-    prof = profiled(torch, steps["train"], n_prof)
+    prof = profiled(steps["train"], n_prof)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = device_kernels(torch, prof)
+    kern = device_kernels(prof)
     busy_ms = sum(us for _, us in kern.values()) / 1e3
     top_dev = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
     top_cpu = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total
@@ -292,36 +291,35 @@ def main() -> int:
           "device_busy_share": busy_ms / wall_ms if kern else None,
           "device_kernels_per_step": sum(c for c, _ in kern.values())
           / n_prof,
+          "fill_kernels_per_step": sum(c for k, (c, _) in kern.items()
+                                       if "FillFunctor" in k) / n_prof,
           "top_device_ms": {k[:70]: us / 1e3 for k, (_, us) in top_dev},
           "top_host_self_ms": {e.key[:70]: e.self_cpu_time_total / 1e3
                                for e in top_cpu}})
 
     # -- the kernels line -----------------------------------------------------
-    sz = 4
-    sites = nb * nt * nx
-    bytes_fwd = nb * 2 * nt * nx * sz * 2 + nb * sz
-    bytes_bwd = nb * 2 * nt * nx * sz * 4 + nb * sz
+    # `ms` is the CUDA-event time of back-to-back wrapper calls (host
+    # enqueue included) at the main path's shape and, for the backward,
+    # in the main path's case: gS absent. The backward with gS is beside it.
     err = errs[(nb, nt, nx, str(torch.float32))]
-
-    def bound(nbytes, ops):
-        b = nbytes / HBM_BYTES_PER_S * 1e3
-        o = ops / PEAK_OPS_PER_S["float32"] * 1e3
-        return max(b, o), "bytes" if b >= o else "operations"
-
     rows = []
-    for name, key, nbytes, ops, func, e in [
-            ("u1_force_fwd", "fwd", bytes_fwd, FWD_OPS_PER_SITE * sites,
-             "_kernel", err["fwd"]),
-            ("u1_force_bwd", "bwd", bytes_bwd, BWD_OPS_PER_SITE * sites,
-             "_fa_bwd", err["bwd"])]:
-        b_ms, b_by = bound(nbytes, ops)
+    for name, key, func in [("u1_force_fwd", "fwd", "_kernel"),
+                            ("u1_force_bwd", "bwd_no_gs", "_fa_bwd")]:
+        bd = kt.bound(key, nb, nt, nx, torch.float32)
         rows.append({
             "name": name, "route": "cuda",
             "source": "l2hmc_torch/csrc/u1_force.cu",
             "replaces": replaces(func), "launches": launches[name],
-            "max_abs_err": e, "ms": t[key], "plain_ms": t[key + "_plain"],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err[key], "ms": t[key],
+            "plain_ms": t[key + "_plain"], "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": None,
+            "device_ms": kernel_dev_ms[key]["device_ms_per_call"],
+            "graph_replay_ms": replay_ms[key],
         })
+    with_gs = kt.bound("bwd", nb, nt, nx, torch.float32)
+    rows[1].update({"with_gs_ms": t["bwd"], "with_gs_plain_ms": t["bwd_plain"],
+                    "with_gs_bound_ms": with_gs["bound_ms"],
+                    "with_gs_max_abs_err": err["bwd"]})
     assert all(r["launches"] > 0 for r in rows), rows
     print(card, flush=True)
     emit({"kernels": rows})

@@ -9,6 +9,8 @@ chain-first x of shape (nb, 2*nt*nx) or (nb, 2, nt, nx):
     force_action(x, beta, nt, nx)  -> (F = beta A^T sin(A x), S (nb,))
     force_action_bwd(x, gF, gS, F, beta, nt, nx)
                                    -> x_bar = beta A^T(cos(A x) * A gF) + gS F
+                                      (gS may be None: no gS F term, and F
+                                      is not read)
     force_action_ad(x, beta, nt, nx)  the differentiable pair (an
                                    autograd.Function over the two above)
 
@@ -16,6 +18,11 @@ A CUDA tensor launches the hand-written kernel in `csrc/u1_force.cu`
 (built with nvcc at first use, loaded with ctypes) or raises; a CPU tensor
 takes the plain version (`force_action_plain`, `force_action_bwd_plain`).
 There is no fallback from the kernel to the plain version.
+
+A launch goes to PyTorch's current stream, never synchronises and does
+its set-up once, so it can be captured in a CUDA graph (after one warm
+call, which builds and loads the library). beta is a Python number or a
+CPU scalar; a CUDA tensor is refused, since reading it would synchronise.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (`force_action.launches`, `force_action_bwd.launches`), so a run can
@@ -36,21 +43,25 @@ import torch
 
 from l2hmc_torch.ops import lattice_u1 as lat
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "u1_force.cu"
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+SOURCE = CSRC / "u1_force.cu"
 #: build output, under the checkout root (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "l2hmc_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 #: shared memory one block can use on sm_90 (227 KB), less the kernels'
-#: static shared memory (the reduction's per-warp partials)
+#: static shared memory (barriers, the reduction's per-warp partials)
 SMEM_LIMIT = 232448 - 1024
-#: shared-memory words per site: forward [xu, xv, sin W], backward
-#: [xu, xv, gF_u, gF_v, cos W * A gF]
+#: least shared-memory words per site (one stage, one chain a block):
+#: forward [xu, xv, sin W], backward [xu, xv, gF_u, gF_v, cos W * A gF]
 FWD_WORDS, BWD_WORDS = 3, 5
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_LIB: dict = {}
+#: the loaded library's entry points by dtype, filled by _load()
+_FWD: dict = {}
+_BWD: dict = {}
+_ERROR_STRING: list = []
 
 
 # ---------------------------------------------------------------------------
@@ -64,13 +75,17 @@ def force_action_plain(x: torch.Tensor, beta, nt: int, nx: int):
 
 
 def force_action_bwd_plain(x: torch.Tensor, g_force: torch.Tensor,
-                           g_act: torch.Tensor, force: torch.Tensor, beta,
+                           g_act: Optional[torch.Tensor],
+                           force: Optional[torch.Tensor], beta,
                            nt: int, nx: int) -> torch.Tensor:
     """x_bar = beta A^T(cos W * A gF) + gS F — a transcription of the JAX
-    package's `_fa_bwd` (u1_kernels.py:126-138)."""
+    package's `_fa_bwd` (u1_kernels.py:126-138). With g_act None the gS F
+    term is left out and force is not used."""
     w = lat.wilson_loops(x, nt, nx)
     h = lat.wilson_loops(g_force, nt, nx)      # A gF (the same linear map)
     x_bar = beta * lat.plaq_adjoint(torch.cos(w) * h, x.shape)
+    if g_act is None:
+        return x_bar
     return x_bar + g_act.reshape(-1, *([1] * (x.dim() - 1))) * force
 
 
@@ -91,11 +106,19 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """The .so for the current source and flags (keyed by their hash, so
-    a stale build is never loaded)."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+def build_inputs(csrc: Path = CSRC) -> list[Path]:
+    """Every file the build reads: the sources and headers under csrc."""
+    return sorted(p for p in csrc.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h"))
+
+
+def library_path(csrc: Path = CSRC) -> Path:
+    """The .so for the current sources, headers and flags (keyed by their
+    hash, so a stale build is never loaded)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in build_inputs(csrc):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
     return BUILD_DIR / f"u1_force_{h.hexdigest()[:16]}.so"
 
 
@@ -124,35 +147,51 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     return path, r.stdout + r.stderr
 
 
-def _lib() -> ctypes.CDLL:
-    if "lib" not in _LIB:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
-        for sfx in _SUFFIX.values():
-            fwd = getattr(lib, f"u1_force_fwd_{sfx}")
-            fwd.argtypes = [p, p, p, d, i, i, i, i, p]
-            fwd.restype = i
-            bwd = getattr(lib, f"u1_force_bwd_{sfx}")
-            bwd.argtypes = [p, p, p, p, p, d, i, i, i, i, p]
-            bwd.restype = i
-        _LIB["lib"] = lib
-    return _LIB["lib"]
+def _load() -> None:
+    """Build if needed, load the library and resolve its entry points once
+    per dtype."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    p, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
+    for dtype, sfx in _SUFFIX.items():
+        fwd = getattr(lib, f"u1_force_fwd_{sfx}")
+        fwd.argtypes = [p, p, p, d, i, i, i, i, p]
+        fwd.restype = i
+        bwd = getattr(lib, f"u1_force_bwd_{sfx}")
+        bwd.argtypes = [p, p, p, p, p, d, i, i, i, i, p]
+        bwd.restype = i
+        _FWD[dtype], _BWD[dtype] = fwd, bwd
+    lib.u1_force_error_string.argtypes = [i]
+    lib.u1_force_error_string.restype = ctypes.c_char_p
+    _ERROR_STRING.append(lib.u1_force_error_string)
+
+
+def _raise_launch_error(name: str, rc: int):
+    what = _ERROR_STRING[0](rc).decode()
+    raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({what})")
 
 
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 def _beta_value(beta) -> float:
-    if isinstance(beta, torch.Tensor) and beta.requires_grad:
-        raise ValueError(
-            "beta is a non-trainable scalar here: the force kernel's "
-            "autograd.Function returns no gradient for it")
+    if isinstance(beta, torch.Tensor):
+        if beta.requires_grad:
+            raise ValueError(
+                "beta is a non-trainable scalar here: the force kernel's "
+                "autograd.Function returns no gradient for it")
+        if beta.device.type != "cpu":
+            raise ValueError(
+                f"beta is a tensor on {beta.device}: reading it would "
+                "synchronise with the device; pass a Python number or a "
+                "CPU scalar")
     return float(beta)
 
 
 def _check_cuda(name: str, x: torch.Tensor, nt: int, nx: int,
-                words: int, like: Optional[torch.Tensor] = None):
+                words: int, like=()) -> int:
+    """Raise on what the kernel does not take; return the number of
+    chains."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got "
                          f"{x.device}")
@@ -170,16 +209,18 @@ def _check_cuda(name: str, x: torch.Tensor, nt: int, nx: int,
         raise ValueError(
             f"{name}: a {nt}x{nx} {x.dtype} lattice needs {smem} bytes of "
             f"shared memory per block; at most {SMEM_LIMIT} fit")
-    if like is not None:
-        for t in like:
-            if t.device != x.device or t.dtype != x.dtype \
-                    or not t.is_contiguous():
-                raise ValueError(f"{name}: every input must be a contiguous "
-                                 f"{x.dtype} tensor on {x.device}")
+    for t in like:
+        if t.device != x.device or t.dtype != x.dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: every input must be a contiguous "
+                             f"{x.dtype} tensor on {x.device}")
+    return nb
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _raw_stream(x: torch.Tensor) -> int:
+    """PyTorch's current stream on x's device, as the integer handle (no
+    Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def force_action(x: torch.Tensor, beta, nt: int, nx: int):
@@ -187,44 +228,52 @@ def force_action(x: torch.Tensor, beta, nt: int, nx: int):
     version for a CPU tensor."""
     if x.device.type == "cpu":
         return force_action_plain(x, beta, nt, nx)
-    _check_cuda("u1_force_fwd", x, nt, nx, FWD_WORDS)
-    nb = x.shape[0]
+    nb = _check_cuda("u1_force_fwd", x, nt, nx, FWD_WORDS)
+    beta = _beta_value(beta)
     force = torch.empty_like(x)
-    act = torch.empty((nb,), dtype=x.dtype, device=x.device)
+    act = x.new_empty((nb,))
     if nb == 0:
         return force, act
-    fn = getattr(_lib(), f"u1_force_fwd_{_SUFFIX[x.dtype]}")
-    rc = fn(x.data_ptr(), force.data_ptr(), act.data_ptr(),
-            _beta_value(beta), nb, nt, nx, x.device.index, _stream(x))
+    if not _FWD:
+        _load()
+    rc = _FWD[x.dtype](x.data_ptr(), force.data_ptr(), act.data_ptr(), beta,
+                       nb, nt, nx, x.device.index, _raw_stream(x))
     if rc != 0:
-        raise RuntimeError(f"u1_force_fwd launch failed: CUDA error {rc}")
+        _raise_launch_error("u1_force_fwd", rc)
     force_action.launches += 1
     return force, act
 
 
 def force_action_bwd(x: torch.Tensor, g_force: torch.Tensor,
-                     g_act: torch.Tensor, force: torch.Tensor, beta,
+                     g_act: Optional[torch.Tensor],
+                     force: Optional[torch.Tensor], beta,
                      nt: int, nx: int) -> torch.Tensor:
     """x_bar of (force, action) w.r.t. x: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. With g_act None (the
+    action was not used) force is neither needed nor read."""
     if x.device.type == "cpu":
         return force_action_bwd_plain(x, g_force, g_act, force, beta, nt, nx)
-    _check_cuda("u1_force_bwd", x, nt, nx, BWD_WORDS,
-                like=(g_force, g_act, force))
-    nb = x.shape[0]
-    if g_force.shape != x.shape or force.shape != x.shape \
-            or tuple(g_act.shape) != (nb,):
+    with_act = g_act is not None
+    nb = _check_cuda("u1_force_bwd", x, nt, nx, BWD_WORDS,
+                     like=(g_force, g_act, force) if with_act
+                     else (g_force,))
+    if g_force.shape != x.shape or (with_act and (
+            force.shape != x.shape or tuple(g_act.shape) != (nb,))):
         raise ValueError("u1_force_bwd: g_force and force must be shaped "
                          "like x and g_act (nb,)")
+    beta = _beta_value(beta)
     x_bar = torch.empty_like(x)
     if nb == 0:
         return x_bar
-    fn = getattr(_lib(), f"u1_force_bwd_{_SUFFIX[x.dtype]}")
-    rc = fn(x.data_ptr(), g_force.data_ptr(), g_act.data_ptr(),
-            force.data_ptr(), x_bar.data_ptr(), _beta_value(beta), nb, nt,
-            nx, x.device.index, _stream(x))
+    if not _BWD:
+        _load()
+    rc = _BWD[x.dtype](x.data_ptr(), g_force.data_ptr(),
+                       g_act.data_ptr() if with_act else None,
+                       force.data_ptr() if with_act else None,
+                       x_bar.data_ptr(), beta, nb, nt, nx, x.device.index,
+                       _raw_stream(x))
     if rc != 0:
-        raise RuntimeError(f"u1_force_bwd launch failed: CUDA error {rc}")
+        _raise_launch_error("u1_force_bwd", rc)
     force_action_bwd.launches += 1
     return x_bar
 
@@ -245,10 +294,13 @@ def reset_launch_counts() -> None:
 
 class ForceAction(torch.autograd.Function):
     """(force, action) of x with the backward kernel as its VJP. beta is
-    a non-trainable scalar: no gradient is returned for it."""
+    a non-trainable scalar: no gradient is returned for it. An output
+    that was not used arrives in backward as None, not as zeros: without
+    g_act the kernel skips the gS F term and never reads F."""
 
     @staticmethod
     def forward(ctx, x, beta, nt, nx):
+        ctx.set_materialize_grads(False)
         force, act = force_action(x, beta, nt, nx)
         ctx.save_for_backward(x, force)
         ctx.beta, ctx.nt, ctx.nx = beta, nt, nx
@@ -256,10 +308,17 @@ class ForceAction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_force, g_act):
+        if g_force is None and g_act is None:
+            return None, None, None, None
         x, force = ctx.saved_tensors
-        x_bar = force_action_bwd(x, g_force.contiguous(),
-                                 g_act.contiguous(), force, ctx.beta,
-                                 ctx.nt, ctx.nx)
+        # only the action was used (not on the training path): the same
+        # kernel with a zero g_force
+        g_force = torch.zeros_like(x) if g_force is None \
+            else g_force.contiguous()
+        if g_act is not None:
+            g_act = g_act.contiguous()
+        x_bar = force_action_bwd(x, g_force, g_act, force, ctx.beta, ctx.nt,
+                                 ctx.nx)
         return x_bar, None, None, None
 
 
