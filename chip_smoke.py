@@ -16,7 +16,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      the autograd.Function at float64;
   4. the main path: `build_experiment(...).run()` at the default U(1)
      width (2048 chains, 16x16, nleapfrog 8, units [16]*4, BatchNorm and
-     dropout on) for one era of 20 train steps, then 20 eval and 20 HMC
+     dropout on) for one era of 10 train steps, then 10 eval and 10 HMC
      draws, with the kernels' launch counters set to 0 just before and
      read just after; then one train, eval and HMC step each, counted
      alone against the launches expected per step;
@@ -27,7 +27,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      the kernels' device time (torch.profiler), and per shape (16x16,
      64x64 float32 and float64) their event, device, graph-replay and
      cold-L2 times with bytes and bound (l2hmc_torch.utils.kernel_times);
-     the device's busy share over a few train steps.
+     the device's busy share over a few train steps;
+  7. the same U(1) config with the conv front-end on its x networks
+     (filters [8, 8], sizes [3, 3], pool [1, 2]), 3 train and 3 eval
+     steps, the force kernels' launch counters read around it;
+  8. 4D SU(3), which has no hand-written kernel (its engine is eager
+     PyTorch): at float64 on the card the engine's shared-plaquette force
+     and action against the complex-matrix closed form on Haar links
+     (4^4 x 8 chains, 1e-10), `reunit`'s unitarity (1e-12) and |dH| of an
+     HMC trajectory at eps 0.01; the SU(3) defaults as they stand (4^4,
+     8 chains, nleapfrog 4, units [16, 16], complex128) through
+     `build_experiment(...).run()` for 20 train, 10 eval and 10 HMC
+     steps; the 8^4 configuration at full width (8 chains, nleapfrog 4,
+     units [32, 32], float32, mixed loss on the 12-step Wilson-flowed
+     clover charge, 12-step flowed eval observables, beta 5.2 -> 5.7) for
+     200 warmup trajectories, 5 train, 5 eval and 5 HMC steps; its step times, a profile of 2
+     train steps (kernels per step, busy share, top device and host ops,
+     peak memory), the hot ops' times beside their bounds with their
+     calls per train step (l2hmc_torch.utils.su3_times); and
+     `l2hmc_torch.train4dsu3.main` with 5 train steps.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound;
 the last is {"ok": true, "device": {...}}.
@@ -72,6 +90,217 @@ def finite(v) -> bool:
     return isinstance(v, (int, float)) and math.isfinite(v)
 
 
+def u1_conv_path(torch, uk) -> None:
+    """The default U(1) config with the conv front-end on the x networks:
+    3 train and 3 eval steps; the force kernels must have been launched."""
+    from l2hmc_torch.experiment import build_experiment
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        ex = build_experiment(
+            ["conv.filters=[8, 8]", "conv.sizes=[3, 3]", "conv.pool=[1, 2]",
+             "steps.nera=1", "steps.nepoch=3", "steps.test=3", "save=false",
+             f"outdir={out}"], device="cuda")
+        assert ex.trainer.dynamics.xnets_first[0].conv is not None
+        uk.reset_launch_counts()
+        t0 = time.perf_counter()
+        ex.train()
+        ex.evaluate("eval")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = uk.launch_counts()
+    hist = ex.trainer.histories["train"].get_dataset()
+    stats = ex.sampler_stats("eval")
+    assert finite(stats) and 0.0 < stats["acc"] <= 1.0, stats
+    assert all(math.isfinite(v) for v in hist["loss"].ravel())
+    assert int(hist["grad_nonfinite"].sum()) == 0
+    assert launches["u1_force_fwd"] > 0 and launches["u1_force_bwd"] > 0, \
+        launches
+    emit({"phase": "u1_conv_path", "seconds": seconds, "launches": launches,
+          "loss": [float(v) for v in hist["loss"].ravel()],
+          "eval_stats": stats})
+
+
+def su3_compare(torch) -> None:
+    """The engine against the complex-matrix closed form, float64 on the
+    card, on Haar links at 4^4 x 8 chains."""
+    from l2hmc_torch.ops import lattice_su3 as lsu3
+    from l2hmc_torch.ops import su3 as g
+    from l2hmc_torch.ops import su3_comp as comp
+    dev, lat, nb, beta = torch.device("cuda"), (4, 4, 4, 4), 8, 5.7
+    gen = torch.Generator(dev).manual_seed(0)
+    shape = (nb, 4, *lat, 3, 3)
+    # Haar links, reunitarized: the closed-form projection of a raw
+    # Gaussian draw leaves some links unitary to 1e-12 only, and the
+    # shared-plaquette force is the staple force on the group alone
+    xf = comp.reunit(comp.from_complex_lattice(
+        g.random(shape, gen, torch.complex128, dev)))
+    x = comp.to_complex_lattice(xf, lat, nb, torch.complex128)
+    v = g.random_momentum(shape, gen, torch.complex128, dev)
+    vf = comp.from_complex_lattice(v)
+    force, tr = comp.force_and_traces(xf, beta, lat, nb)
+    ref = lsu3.grad_action(x, beta, lat)
+    err_force = float((comp.to_complex_lattice(force, lat, nb, x.dtype)
+                       - ref).abs().max())
+    act = comp.action(xf, beta, lat, nb)
+    err_action = float((act - lsu3.action(x, beta, lat)).abs().max())
+    err_trace = float(((-beta / 3.0) * tr - act).abs().max())
+    rough = comp.add(xf, comp.scale(vf, 1e-3))
+    u = comp.reunit(rough)
+    uu = comp.mm(u, u, adj_a=True)
+    eye = comp.eye_like(uu)
+    err_unit = float(max((uu.re - eye.re).abs().max(), uu.im.abs().max()))
+    _, _, dh = comp.hmc_trajectory(xf, vf, beta, 0.01, 10, lat, nb)
+    torch.cuda.synchronize()
+    res = {"force_max_abs_err": err_force, "action_max_abs_err": err_action,
+           "trace_action_max_abs_err": err_trace,
+           "reunit_unitarity": err_unit, "max_abs_dh_eps_0.01":
+           float(dh.abs().max())}
+    emit({"phase": "su3_compare", "dtype": "float64", "lattice": list(lat),
+          "nchains": nb, **res})
+    assert err_force <= 1e-10 and err_action <= 1e-10 \
+        and err_trace <= 1e-10, res
+    assert err_unit <= 1e-12, res
+    assert res["max_abs_dh_eps_0.01"] < 0.1, res
+
+
+def su3_run(torch, overrides, phase, flow: bool):
+    """`build_experiment(overrides, group="SU3").run()` on the card with
+    the gates of an SU(3) path. Returns the experiment."""
+    from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.ops import su3 as g
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        ex = build_experiment(overrides + [f"outdir={out}"], group="SU3",
+                              device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = ex.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    assert ex._x.is_cuda and ex._x.is_complex()
+    hist = ex.trainer.histories["train"].get_dataset()
+    assert finite(summary), summary
+    for job in ("eval_stats", "hmc_stats"):
+        assert 0.0 < summary[job]["acc"] <= 1.0, (job, summary[job])
+    assert (hist["grad_norm"] > 0).all(), hist["grad_norm"]
+    assert int(hist["grad_nonfinite"].sum()) == 0
+    check = float(g.checkSU(ex._x)[1].max())
+    assert check < 1e-3, check
+    for job in ("eval", "hmc"):
+        h = ex.trainer.histories[job].get_dataset()
+        for key in ("flowQ", "flow_plaq", "flow_t2E"):
+            assert (key in h) == flow, (job, key)
+    emit({"phase": phase, "seconds": seconds,
+          "dtype": str(ex._x.dtype).replace("torch.", ""),
+          "lattice": list(ex.cfg.dynamics.latvolume),
+          "nchains": ex.cfg.dynamics.nchains,
+          "grad_norm": [float(v) for v in hist["grad_norm"].ravel()],
+          "checkSU_max_after_training": check,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "summary": summary})
+    return ex
+
+
+def su3_phases(torch, card, u1_ncp) -> None:
+    from l2hmc_torch import train4dsu3
+    from l2hmc_torch.utils import su3_times as st
+    from l2hmc_torch.utils.kernel_times import cuda_ms, profiled, raw_summary
+    su3_compare(torch)
+    su3_run(torch, ["steps.nera=1", "steps.nepoch=20", "steps.test=10",
+                    "save=true"], "su3_default_path", flow=False)
+    # a fixed warmup budget, as the record's run has (1000 there): from
+    # the ordered start the plaquette stands still while every proposal
+    # is rejected, which the stationarity criterion would take for
+    # equilibrium; 200 self-tuned trajectories thermalize the lattice
+    ex = su3_run(torch, st.MAIN_SU3 + ["steps.nera=1", "steps.nepoch=5",
+                                       "steps.test=5", "steps.warmup=200"],
+                 "su3_main_path", flow=True)
+    tr, cfg = ex.trainer, ex.cfg
+    x = ex._x.contiguous()
+    beta = float(cfg.annealing_schedule.beta_final)
+    eps = cfg.dynamics.eps_hmc
+    nchains = cfg.dynamics.nchains
+
+    def eval_draw():        # a draw as evaluate() makes it: step, then flow
+        xo, _ = tr.eval_step(x, beta, ex.generator)
+        return tr._flow_metrics(xo)
+
+    def hmc_draw():
+        xo, _ = tr.hmc_step(x, beta, eps, ex.generator)
+        return tr._flow_metrics(xo)
+
+    steps = {"train": lambda: tr.train_step(x, beta, ex.generator),
+             "eval": eval_draw, "hmc": hmc_draw}
+    # the path has just run, so the train step is warm: two timed steps,
+    # the engine's calls counted alongside (a step takes ~10 s)
+    n_timed = 2
+    with st.counting() as counts:
+        step_ms = {"train": cuda_ms(steps["train"], n_timed, warmup=0)}
+    counts = {name: c // n_timed for name, c in counts.items()}
+    step_ms.update({job: cuda_ms(steps[job], 3, warmup=1)
+                    for job in ("eval", "hmc")})
+    emit({"phase": "su3_step_times", "card": card, "ms": step_ms,
+          "nchains": nchains, "lattice": list(cfg.dynamics.latvolume),
+          "dtype": "float32", "flow_steps_per_draw": cfg.flow_nsteps})
+
+    # the hot ops before the big profile: in a window opened right after
+    # one of millions of events the profiler drops the first few records
+    rows = st.hot_ops(cfg.dynamics.latvolume, nchains, tr.dynamics.real_dtype,
+                      counts, device=x.device)
+    rows["u1_ncp_x_update"] = u1_ncp
+    emit({"phase": "su3_hot_ops", "card": card, "ops": rows})
+
+    n_prof = 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prof = profiled(steps["train"], n_prof, warm=False)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    # ~10^6 events a step: key_averages() would take minutes
+    summary = raw_summary(prof)
+    del prof
+    kern, host = summary["kernels"], summary["host"]
+    assert kern, "the profiler recorded no device kernel"
+    busy_ms = sum(us for _, us in kern.values()) / 1e3
+    top_dev = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
+    top_cpu = sorted(host.items(), key=lambda kv: -kv[1][1])[:10]
+    # device time by kind of kernel: the networks' GEMMs and the
+    # optimizer have names of their own; the engine, the flow and their
+    # backward are the anonymous elementwise, reduce, roll and copy kernels
+    kinds = {"network_gemm": ("gemm", "gemv"),
+             "optimizer": ("multi_tensor", "Optimizer."),
+             "reduce": ("reduce_kernel",), "roll_copy": ("roll_", "Memcpy")}
+    by_kind = {kind: 0.0 for kind in (*kinds, "elementwise_other")}
+    for name, (_, us) in kern.items():
+        kind = next((k for k, pats in kinds.items()
+                     if any(p in name for p in pats)), "elementwise_other")
+        by_kind[kind] += us / 1e3 / n_prof
+    emit({"phase": "su3_train_profile", "card": card, "steps": n_prof,
+          "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / wall_ms,
+          # the profiler slows the host several times over: the share of
+          # a step timed without it
+          "device_busy_share_unprofiled": busy_ms / n_prof
+          / step_ms["train"],
+          "device_kernels_per_step": sum(c for c, _ in kern.values())
+          / n_prof, "host_events_per_step": sum(c for c, _ in host.values())
+          / n_prof, "peak_memory_bytes": peak,
+          "engine_calls_per_step": counts,
+          "device_ms_per_step_by_kind": by_kind,
+          "top_device_per_step": {k[:90]: {"count": c / n_prof,
+                                           "ms": us / 1e3 / n_prof}
+                                  for k, (c, us) in top_dev},
+          "top_host_self_ms_per_step": {k[:70]: us / 1e3 / n_prof
+                                        for k, (_, us) in top_cpu}})
+    del ex, tr, x, steps
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = train4dsu3.main(["steps.nepoch=5"])
+    torch.cuda.synchronize()
+    assert rc == 0, rc
+    emit({"phase": "train4dsu3", "seconds": time.perf_counter() - t0,
+          "train_steps": 5})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -81,6 +310,7 @@ def main() -> int:
     from l2hmc_torch.experiment import build_experiment
     from l2hmc_torch.ops.kernels import u1_force as uk
     from l2hmc_torch.utils import kernel_times as kt
+    from l2hmc_torch.utils import su3_times as st
     from l2hmc_torch.utils.kernel_times import (card_line, cuda_ms,
                                                 device_kernels, device_ms,
                                                 profiled)
@@ -159,7 +389,7 @@ def main() -> int:
     emit({"phase": "gradcheck", "ok": True})
 
     # -- 4. the main path -------------------------------------------------------
-    nera, nepoch, ntest = 1, 20, 20
+    nera, nepoch, ntest = 1, 10, 10
     with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
         ex = build_experiment([f"steps.nera={nera}", f"steps.nepoch={nepoch}",
                                f"steps.test={ntest}", "save=true",
@@ -296,6 +526,13 @@ def main() -> int:
           "top_device_ms": {k[:70]: us / 1e3 for k, (_, us) in top_dev},
           "top_host_self_ms": {e.key[:70]: e.self_cpu_time_total / 1e3
                                for e in top_cpu}})
+
+    u1_conv_path(torch, uk)
+    # 2 x-updates a leapfrog step, 2 nlf steps, run and recomputed
+    u1_ncp = st.u1_ncp_row(tr.dynamics, nb, calls=8 * nlf)
+    del ex, tr, x, xe, steps, prof
+    torch.cuda.empty_cache()
+    su3_phases(torch, card, u1_ncp)
 
     # -- the kernels line -----------------------------------------------------
     # `ms` is the CUDA-event time of back-to-back wrapper calls (host

@@ -6,7 +6,7 @@ overrides into the config dataclasses, e.g.
   python -m l2hmc_torch dynamics.nchains=1024 steps.nepoch=500
 
 Special overrides:
-  group=U1          the only group ported so far (group=SU3 raises)
+  group=SU3         use the 4D SU(3) defaults (default U1)
   mode=debug        tiny debug run (reference conf/mode/debug.yaml)
   device=cpu        run on the CPU (default: the CUDA card)
   outdir=...        output directory
@@ -57,9 +57,8 @@ def main(argv=None):
             continue
         else:
             overrides.append(a)
-    if group != "U1":
-        raise SystemExit(f"group={group} is not ported to l2hmc_torch yet "
-                         "(only U1)")
+    if group not in ("U1", "SU3"):
+        raise SystemExit(f"group must be U1 or SU3, got {group}")
 
     from l2hmc_torch.experiment import Experiment, build_experiment
     if config_path is not None:

@@ -41,6 +41,12 @@ class Experiment:
         self._x: Optional[torch.Tensor] = None
         self._start_era = 0
         self._beta_init: Optional[float] = None
+        if cfg.use_tb or cfg.use_wandb or cfg.init_aim:
+            from l2hmc_torch.utils.trackers import Trackers
+            self.trainer.trackers = Trackers(
+                self.outdir, use_tb=cfg.use_tb, use_wandb=cfg.use_wandb,
+                use_aim=cfg.init_aim, config=cfg.to_dict(),
+                run_name=cfg.name)
 
     # ------------------------------------------------------------------
     def setup(self) -> torch.Tensor:
@@ -59,6 +65,7 @@ class Experiment:
                 tr.optimizer.load_state_dict(tree["optimizer"])
                 tr.step = int(tree["step"])
                 tr.updates = int(tree["updates"])
+                tr.restore_accumulated_grads(tree.get("acc_grads"))
                 self._x = tree["x"].to(self.device)
                 self.generator.set_state(tree["generator"].cpu())
                 self._start_era = int(tree["era"]) + 1
@@ -151,6 +158,17 @@ class Experiment:
             out["dQint"] = float(np.mean(h["dQint"]))
         if "dQsin" in h:
             out["dQsin"] = float(np.mean(h["dQsin"]))
+        if "flowQ" in h:
+            # Wilson-flowed clover charge (flow_nsteps > 0): near-integer
+            # after flow, so its tunneling rate counts real topological
+            # sector changes, which the imag-trace intQ cannot resolve
+            q = np.atleast_2d(h["flowQ"])
+            out["flowQ_mean_abs"] = float(np.mean(np.abs(q)))
+            out["dQint_flow"] = ac.tunneling_rate(q)
+            if q.shape[-1] >= 8:
+                out.update({f"flowQ_{k}": v for k, v in
+                            ac.chain_stats(np.round(q)).items()
+                            if k in ("tau_int", "ess_per_step")})
         return out
 
     def run(self) -> dict:
@@ -173,11 +191,29 @@ class Experiment:
         with open(os.path.join(self.outdir, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
         self.make_plots()
+        if self.trainer.trackers is not None:
+            # final model as a wandb artifact (reference
+            # __main__.py:197-241); a no-op for tb/aim-only runs
+            ckpt_dir = os.path.join(self.outdir, "checkpoints")
+            if os.path.isdir(ckpt_dir):
+                self.trainer.trackers.log_artifact(ckpt_dir, name="model")
         log.info(f"model_improvement: {improvement:.3f}")
         return summary
 
     def make_plots(self) -> None:
-        """End-of-job plots: a no-op until the plots module is ported."""
+        """End-of-job metric plots (reference common.py:732-900); nothing
+        is written where matplotlib is missing."""
+        from l2hmc_torch.utils import plots
+        keys = ["loss", "acc", "dQint", "dQsin", "plaqs", "sumlogdet",
+                "grad_norm"]
+        for job in ("train", "eval", "hmc"):
+            h = self.trainer.histories[job].get_dataset()
+            if not h:
+                continue
+            d = os.path.join(self.outdir, "plots", job)
+            plots.plot_history(h, d, logging_steps=1, keys=keys)
+            if "intQ" in h and np.asarray(h["intQ"]).ndim >= 2:
+                plots.plot_ridge(h["intQ"], "intQ", d)
 
 
 def build_experiment(overrides: Optional[Sequence[str]] = None,
@@ -188,7 +224,4 @@ def build_experiment(overrides: Optional[Sequence[str]] = None,
     for ov in overrides:
         if ov.startswith("group="):
             group = ov.split("=", 1)[1]
-    if group.upper() != "U1":
-        raise NotImplementedError(
-            f"group={group} is not ported to l2hmc_torch yet (only U1)")
     return Experiment(get_config(overrides, group=group), device=device)

@@ -16,7 +16,11 @@ Where this differs from stock torch layers, it follows the JAX package:
 - `compute_dtype` (bf16) casts parameters and inputs for the GEMM stack
   and casts the outputs back.
 
-The U(1) conv front-end (JAX networks.py:71-129) is not ported yet.
+The optional U(1) conv front-end (`ConvStack`, network.py:240-346) views
+the x input as (nb, C, H, W), wrap-pads k-1 on each side before every
+VALID convolution (so H grows by k-1 per layer), max-pools after every
+second layer where its pool size exceeds 1, and ends in a linear head back
+to the x feature width.
 
 `from_jax_params` builds a layer from the JAX parameter tree (as numpy
 arrays). JAX stores a linear weight as (din, dout) and computes z @ w, so
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from l2hmc_torch.configs import NetWeight, NetworkConfig
+from l2hmc_torch.configs import ConvolutionConfig, NetWeight, NetworkConfig
 
 ACTIVATIONS: dict[str, Callable] = {
     "relu": F.relu,
@@ -80,13 +84,71 @@ def _scaled_tanh(layer: ScaledTanh, z: torch.Tensor, cd=None):
     return torch.exp(coeff) * torch.tanh(_linear(layer, z, cd))
 
 
+def _uniform_(t: torch.Tensor, bound: float, generator=None) -> None:
+    t.uniform_(-bound, bound, generator=generator)
+
+
+class ConvStack(nn.Module):
+    """Periodic-padded conv stack + flatten + linear head: (nb, features)
+    viewed as (nb, channels, H, W) -> (nb, out_dim). Weights are OIHW."""
+
+    def __init__(self, conv: ConvolutionConfig, in_channels: int,
+                 hw: tuple, out_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.sizes = [int(k) for k in conv.sizes]
+        self.pool = [int(p) for p in conv.pool]
+        self.channels = int(in_channels)
+        self.hw = (int(hw[0]), int(hw[1]))
+        self.layers = nn.ModuleList()
+        c_in = self.channels
+        h, w = self.hw
+        for i, (f, k) in enumerate(zip(conv.filters, self.sizes)):
+            self.layers.append(nn.Conv2d(c_in, int(f), k, dtype=dtype))
+            c_in = int(f)
+            # periodic pad (k-1) each side then VALID conv: H -> H + (k - 1)
+            h += k - 1
+            w += k - 1
+            if (i + 1) % 2 == 0:
+                h //= self.pool[i]
+                w //= self.pool[i]
+        self.head = nn.Linear(c_in * h * w, out_dim, dtype=dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        for layer in self.layers:
+            k = layer.kernel_size[0]
+            bound = 1.0 / math.sqrt(layer.in_channels * k * k)
+            _uniform_(layer.weight, bound, generator)
+            _uniform_(layer.bias, bound, generator)
+        bound = 1.0 / math.sqrt(self.head.in_features)
+        _uniform_(self.head.weight, bound, generator)
+        _uniform_(self.head.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor, act: Callable, cd=None):
+        z = x.reshape(x.shape[0], self.channels, *self.hw)
+        for i, layer in enumerate(self.layers):
+            pad = self.sizes[i] - 1
+            if pad > 0:
+                z = F.pad(z, (pad, pad, pad, pad), mode="circular")
+            w, b = layer.weight, layer.bias
+            if cd is not None:
+                w, b = w.to(cd), b.to(cd)
+            z = F.conv2d(z, w, b)
+            if (i + 1) % 2 == 0 and self.pool[i] > 1:
+                z = F.max_pool2d(z, self.pool[i], self.pool[i])
+            z = act(z)
+        return act(_linear(self.head, z.reshape(z.shape[0], -1), cd))
+
+
 class LeapfrogLayer(nn.Module):
     """(x, v) -> (s, t, q), each (nb, out_dim)."""
 
     def __init__(self, x_dim: int, v_dim: int, out_dim: int,
                  cfg: NetworkConfig, net_weight: NetWeight,
                  dtype=torch.float32, compute_dtype=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 conv: Optional[ConvolutionConfig] = None,
+                 conv_channels: int = 0, conv_hw: Optional[tuple] = None):
         super().__init__()
         self.cfg = cfg
         self.net_weight = net_weight
@@ -103,6 +165,8 @@ class LeapfrogLayer(nn.Module):
         self.transf = ScaledTanh(units[-1], out_dim, dtype=dtype)
         self.bn = (BatchNormParams(units[-1], dtype)
                    if cfg.use_batch_norm else None)
+        self.conv = (ConvStack(conv, conv_channels, conv_hw, x_dim, dtype)
+                     if conv is not None and conv.filters else None)
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -114,14 +178,16 @@ class LeapfrogLayer(nn.Module):
                    self.transl, self.transf]
         for lin in linears:
             bound = 1.0 / math.sqrt(lin.in_features)
-            lin.weight.uniform_(-bound, bound, generator=generator)
-            lin.bias.uniform_(-bound, bound, generator=generator)
+            _uniform_(lin.weight, bound, generator)
+            _uniform_(lin.bias, bound, generator)
         self.scale.coeff.zero_()
         self.transf.coeff.zero_()
         if self.cfg.zero_init_heads:
             for head in (self.scale, self.transl, self.transf):
                 for p in head.parameters():
                     p.zero_()
+        if self.conv is not None:
+            self.conv.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, v: torch.Tensor,
                 training: bool = False,
@@ -135,6 +201,8 @@ class LeapfrogLayer(nn.Module):
         if cd is not None:
             x = x.to(cd)
             v = v.to(cd)
+        if self.conv is not None:
+            x = self.conv(x, self.act, cd)
         z = self.act(_linear(self.xlayer, x, cd) + _linear(self.vlayer, v, cd))
         for h in self.hidden:
             z = self.act(_linear(h, z, cd))
@@ -173,10 +241,6 @@ class LeapfrogLayer(nn.Module):
     def load_jax_params(self, tree: dict) -> None:
         """Copy one (unstacked) JAX LeapfrogLayer tree of numpy arrays into
         this module."""
-        if "conv" in tree:
-            raise NotImplementedError(
-                "the U(1) conv front-end is not ported to l2hmc_torch yet")
-
         def put(dst: torch.Tensor, a, transpose=False):
             a = np.asarray(a)
             t = torch.from_numpy(np.array(a.T if transpose else a))
@@ -204,23 +268,41 @@ class LeapfrogLayer(nn.Module):
         if self.bn is not None:
             for name in ("gamma", "beta", "r_mean", "r_var"):
                 put(getattr(self.bn, name), tree["bn"][name])
+        if (self.conv is None) != ("conv" not in tree):
+            raise ValueError("conv front-end on/off differs from the JAX "
+                             "tree")
+        if self.conv is not None:
+            ctree = tree["conv"]
+            if len(ctree["layers"]) != len(self.conv.layers):
+                raise ValueError("conv depth differs from the JAX tree")
+            for layer, p in zip(self.conv.layers, ctree["layers"]):
+                put(layer.weight, p["w"])        # OIHW in both
+                put(layer.bias, p["b"])
+            put_linear(self.conv.head, ctree["head"])
 
 
 def from_jax_params(tree: dict, cfg: NetworkConfig,
                     net_weight: Optional[NetWeight] = None,
-                    dtype=None, compute_dtype=None) -> LeapfrogLayer:
+                    dtype=None, compute_dtype=None,
+                    conv: Optional[ConvolutionConfig] = None,
+                    conv_channels: int = 0,
+                    conv_hw: Optional[tuple] = None) -> LeapfrogLayer:
     """Build a LeapfrogLayer from one (unstacked) JAX parameter tree of
-    numpy arrays; the dims come from the tree's shapes."""
-    if "conv" in tree:
-        raise NotImplementedError(
-            "the U(1) conv front-end is not ported to l2hmc_torch yet")
+    numpy arrays; the dims come from the tree's shapes. A tree with a
+    "conv" sub-tree needs the conv config, channels and (H, W), which are
+    not in the tree."""
+    if "conv" in tree and not (conv is not None and conv.filters):
+        raise ValueError("the tree has a conv front-end: pass its "
+                         "ConvolutionConfig, channels and (H, W)")
     xw = np.asarray(tree["xlayer"]["w"])
     dtype = dtype or torch.from_numpy(np.zeros(0, xw.dtype)).dtype
     layer = LeapfrogLayer(
         x_dim=xw.shape[0], v_dim=np.asarray(tree["vlayer"]["w"]).shape[0],
         out_dim=np.asarray(tree["scale"]["w"]).shape[1], cfg=cfg,
         net_weight=net_weight or NetWeight(), dtype=dtype,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype,
+        conv=conv if "conv" in tree else None,
+        conv_channels=conv_channels, conv_hw=conv_hw)
     layer.load_jax_params(tree)
     return layer
 

@@ -15,6 +15,13 @@ the linear-warmup and Noam schedules and the host-side ReduceLROnPlateau
 all written into the param group's lr, gradient accumulation as
 `optax.MultiSteps` (mean of k micro-step gradients, one Adam update).
 
+SU(3): the lattice is complex (complex128 at precision=float64, else
+complex64), every train step reports the unitarity monitors `checkSU_*`
+of its output, HMC steps report the engine's free plaquettes, eval and HMC
+draws add the Wilson-flowed observables when `flow_nsteps > 0`, and the
+warmup stops on plaquette stationarity. Lattice-sharded training (a
+`mesh_shape` override) waits for the port of `parallel/`.
+
 Timing: each timed region starts and ends with `torch.cuda.synchronize()`
 on the card, so a step time is device time, not enqueue time.
 """
@@ -31,6 +38,9 @@ from l2hmc_torch.configs import ExperimentConfig
 from l2hmc_torch.models.dynamics import Dynamics
 from l2hmc_torch.models.loss import LatticeLoss
 from l2hmc_torch.ops import lattice_u1
+from l2hmc_torch.ops import su3 as su3g
+from l2hmc_torch.ops import su3_comp as comp
+from l2hmc_torch.ops import wilson_flow as wf
 from l2hmc_torch.train.annealing import Annealer, ReduceLROnPlateau
 from l2hmc_torch.utils.history import History, summarize_dict
 from l2hmc_torch.utils.step_timer import StepTimer
@@ -41,6 +51,9 @@ BN_MOMENTUM = 0.1
 
 
 def dtype_for(cfg: ExperimentConfig) -> torch.dtype:
+    if cfg.dynamics.group == "SU3":
+        return (torch.complex128 if cfg.precision == "float64"
+                else torch.complex64)
     return {"float64": torch.float64, "float32": torch.float32,
             "bfloat16": torch.float32, "float16": torch.float32}[
                 cfg.precision]
@@ -63,10 +76,12 @@ def _sync(device: torch.device) -> None:
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None):
-        if cfg.dynamics.group != "U1":
+        if cfg.mesh_shape is not None:
             raise NotImplementedError(
-                f"group={cfg.dynamics.group} is not ported to l2hmc_torch "
-                "yet (only U1)")
+                f"mesh_shape={list(cfg.mesh_shape)}: chain- and "
+                "lattice-sharded training (the JAX package's parallel/) is "
+                "not ported to l2hmc_torch yet (ROADMAP.md, Queue 1, items "
+                "18-19); the port runs on one device")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype_for(cfg)
@@ -75,6 +90,7 @@ class Trainer:
         self.dynamics = Dynamics(
             cfg.dynamics, cfg.network, cfg.net_weights, cfg.conv,
             dtype=self.dtype, net_compute_dtype=net_cd, generator=gen,
+            c1=getattr(cfg, "c1", 0.0),
         ).to(self.device)
         self.lattice = self.dynamics.lattice
         self.loss_fn = LatticeLoss(self.lattice, cfg.loss)
@@ -104,6 +120,7 @@ class Trainer:
         self.timers = {j: StepTimer(self.evals_per_step)
                        for j in ("train", "eval", "hmc", "warmup")}
         self.histories = {j: History() for j in ("train", "eval", "hmc")}
+        self.trackers = None   # optional utils.trackers.Trackers fan-out
 
     # ------------------------------------------------------------------
     # Learning rate
@@ -186,10 +203,20 @@ class Trainer:
             "grad_norm": grad_norm,
             "grad_nonfinite": grad_nonfinite,
         }
+        if "per_step" in metrics:
+            # per-leapfrog verbose series (dynamics.verbose=true):
+            # (2*nlf, nb) tensors; History maps them to the
+            # (chain, leapfrog, draw) dataset dims
+            out.update(metrics["per_step"])
+        xout = xout.detach()
         with torch.no_grad():
-            out.update(self.loss_fn.lattice_metrics(mc.init.x,
-                                                    xout.detach()))
-        return xout.detach(), out
+            out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
+            if self.cfg.dynamics.group == "SU3":
+                # unitarity drift monitor in the hot loop (the reference
+                # checks only in its standalone train4dSU3 script,
+                # train4dSU3.py:157,191)
+                out["checkSU_mean"], out["checkSU_max"] = su3g.checkSU(xout)
+        return xout, out
 
     def _optimizer_update(self, params, grads, grad_norm):
         """Clip, accumulate, set the lr and apply Adam."""
@@ -218,6 +245,17 @@ class Trainer:
         self.optimizer.step()
         self.updates += 1
 
+    def accumulated_grads(self) -> Optional[list]:
+        """The open accumulation window's partial gradient sums (None
+        between windows), for the checkpoint."""
+        if self._acc_grads is None:
+            return None
+        return [g.detach().cpu() for g in self._acc_grads]
+
+    def restore_accumulated_grads(self, grads: Optional[list]) -> None:
+        self._acc_grads = (None if grads is None else
+                           [g.to(self.device) for g in grads])
+
     @torch.no_grad()
     def _apply_bn_ema(self, bn_stats: list) -> None:
         """Fold the batch (mean, var) of every BN call of the trajectory
@@ -237,6 +275,8 @@ class Trainer:
         for k, bn in bn_stats:
             add("vnets", k, bn["v"][0])
             add("vnets", k, bn["v"][1])
+            if "x0" not in bn:      # SU(3): no x networks
+                continue
             if cfg.use_split_xnets:
                 add("xnets_first", k, bn["x0"])
                 add("xnets_second", k, bn["x1"])
@@ -265,6 +305,8 @@ class Trainer:
             "acc_mask": metrics["acc_mask"],
             "sumlogdet": metrics["sumlogdet"],
         }
+        if "per_step" in metrics:
+            out.update(metrics["per_step"])
         out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
         return xout, out
 
@@ -277,19 +319,59 @@ class Trainer:
         mc = metrics["mc_states"]
         out = {"acc": metrics["acc"], "acc_mask": metrics["acc_mask"]}
         out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
+        if "plaqs" in metrics:
+            # SU(3): the engine's free action traces replace the
+            # observable path's plaquette (the same number)
+            out["plaqs"] = metrics["plaqs"]
         return xout, out
+
+    # ------------------------------------------------------------------
+    # Wilson-flowed eval observables (flow_nsteps > 0, SU(3) only):
+    # flowed clover topological charge + smoothed plaquette + t^2 E per
+    # draw (ops/wilson_flow.py). The reference has no flow and its SU(3)
+    # integer charge is a TODO stub; the flowed clover charge is the
+    # observable that shows integer tunneling.
+    # ------------------------------------------------------------------
+    @property
+    def _flow_enabled(self) -> bool:
+        return (self.cfg.dynamics.group == "SU3"
+                and int(getattr(self.cfg, "flow_nsteps", 0)) > 0)
+
+    @torch.no_grad()
+    def _flow_metrics(self, x) -> dict:
+        ns = int(self.cfg.flow_nsteps)
+        lat = tuple(self.cfg.dynamics.latvolume)
+        nb = x.shape[0]
+        res = wf.flow(comp.from_complex_lattice(x), float(self.cfg.flow_eps),
+                      ns, lat, nb)
+        obs = wf.flow_observables(res.t, res.tr, self.lattice.volume)
+        # plaq/t2E are measured at step STARTS; [-1] is the deepest
+        # measured time (ns-1)*eps
+        return {"flowQ": comp.topo_charge_clover(res.x, lat, nb),
+                "flow_plaq": obs["plaq"][-1], "flow_t2E": obs["t2E"][-1]}
 
     # ------------------------------------------------------------------
     # Warmup (trainer.py:1699-1744)
     # ------------------------------------------------------------------
     def warmup(self, x, beta: float, generator=None, nsteps: int = 100,
-               tol: float = 1e-5, exact: bool = False):
-        """Thermalize with HMC until the mean plaquette reaches the exact
-        i1/i0 value (the reference's U(1) criterion), capped at nsteps;
-        exact=True runs all nsteps. The step size self-tunes every 10
-        trajectories (x1.2 above 0.75 acceptance, /1.5 below 0.5)."""
+               tol: float = 1e-5, su3_rtol: float = 2e-3,
+               exact: bool = False):
+        """Thermalize with HMC, capped at nsteps; exact=True runs all
+        nsteps. U(1) stops when the mean plaquette reaches the exact i1/i0
+        value (the reference's criterion, trainer.py:1720-1731). SU(3) has
+        no closed form, so it stops on plaquette stationarity: the drift
+        between two adjacent 5-step windowed means below su3_rtol
+        (relative).
+
+        The step size self-tunes every 10 trajectories (x1.2 above 0.75
+        acceptance, /1.5 below 0.5): thermalization measures nothing, so
+        eps is free, and a fixed eps can deadlock (from the ordered start
+        dH scales with the volume, and 8^4 at the production eps rejects
+        everything)."""
         eps = self.cfg.dynamics.eps_hmc
-        pexact = float(lattice_u1.plaq_exact(beta))
+        pexact = (float(lattice_u1.plaq_exact(beta))
+                  if self.cfg.dynamics.group == "U1" else None)
+        window: list[float] = []
         for step in range(nsteps):
             x, metrics = self.hmc_step(x, beta, eps, generator)
             if (step + 1) % 10 == 0:
@@ -300,8 +382,17 @@ class Trainer:
                     eps = max(eps / 1.5, 1e-5)
             if exact:
                 continue
-            if abs(float(torch.mean(metrics["plaqs"])) - pexact) < tol:
-                break
+            p = float(torch.mean(metrics["plaqs"]))
+            if pexact is not None:
+                if abs(p - pexact) < tol:
+                    break
+            else:
+                window.append(p)
+                if len(window) >= 10:
+                    m1 = float(np.mean(window[-5:]))
+                    m0 = float(np.mean(window[-10:-5]))
+                    if abs(m1 - m0) <= su3_rtol * max(1.0, abs(m1)):
+                        break
         return x
 
     # ------------------------------------------------------------------
@@ -336,6 +427,8 @@ class Trainer:
             # re-thermalize at every era's beta (trainer.py:1788)
             if fixed > 0:
                 cap = fixed if era == 0 else max(1, fixed // 4)
+            elif self.cfg.dynamics.group == "SU3":
+                cap = 60 if era == 0 else 30
             else:
                 cap = 20 if era == 0 else 10
             x = self.warmup(x, beta, generator, nsteps=cap, exact=fixed > 0)
@@ -348,6 +441,14 @@ class Trainer:
                 x, metrics = self.train_step(x, beta, generator)
                 if (epoch % nlog == 0) or (epoch == epochs - 1):
                     avgs = history.update(metrics)
+                    if self.trackers is not None:
+                        self.trackers.update_summaries(metrics, self.step,
+                                                       "train")
+                        if epoch % nprint == 0:
+                            # param + grad histograms on the (sparser)
+                            # console cadence
+                            self.trackers.log_params(self.dynamics,
+                                                     self.step)
                     if "loss" in avgs:
                         era_losses.append(avgs["loss"])
                     if epoch % nprint == 0:
@@ -432,8 +533,12 @@ class Trainer:
                 x, metrics = self.eval_step(x, beta, generator)
             else:
                 x, metrics = self.hmc_step(x, beta, eps, generator)
+            if self._flow_enabled:
+                metrics = {**metrics, **self._flow_metrics(x)}
             buffered.append(metrics)
             if (step + 1) % check_interval == 0 or step == steps - 1:
+                if self.trackers is not None:
+                    self.trackers.update_summaries(metrics, step, job_type)
                 if float(torch.mean(metrics["acc"])) < 1e-5:
                     stuck_counter += 1
                     if stuck_counter >= patience:

@@ -5,8 +5,10 @@ reference's per-era tar checkpoints, trainers/pytorch/trainer.py:573-701:
 {era, epoch, xeps, veps, gstep, model_state_dict, optimizer_state_dict} +
 restore-latest). One file per save under `<outdir>/checkpoints/`, written
 atomically, holding the sampler's and the optimizer's state dicts plus
-what a resumed run needs: the lattice x, the generator state, the era and
-the beta reached, and the step counters.
+what a resumed run needs: the lattice x (complex for SU(3); `torch.save`
+takes complex tensors as they are), the generator state, the era and the
+beta reached, the step counters, and the partial sum of an open
+gradient-accumulation window.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ def make_resume_tree(trainer: Any, x: torch.Tensor,
         "optimizer": trainer.optimizer.state_dict(),
         "step": int(trainer.step),
         "updates": int(trainer.updates),
+        "acc_grads": trainer.accumulated_grads(),
         "x": x.detach().cpu(),
         "generator": generator.get_state(),
         "era": int(era),

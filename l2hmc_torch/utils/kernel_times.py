@@ -110,10 +110,12 @@ def cuda_ms(fn, reps: int, warmup: int = 5, batches: int = 1) -> float:
     return statistics.median(means)
 
 
-def profiled(fn, reps: int):
-    """torch.profiler over reps calls of fn (after one warm call)."""
+def profiled(fn, reps: int, warm: bool = True):
+    """torch.profiler over reps calls of fn (after one warm call, unless
+    the caller has made it)."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -129,6 +131,44 @@ def device_kernels(prof) -> dict:
     return {e.key: (e.count, e.self_device_time_total)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA}
+
+
+def raw_summary(prof) -> dict:
+    """{"kernels": {name: (count, device us)}, "host": {name: (count, self
+    us)}} of a profiled window, read from the profiler's raw event list.
+    `key_averages()` builds a Python object tree per event and needs
+    minutes for the ~10^6 events of one SU(3) train step; this walks the
+    raw events once. A host event's self time is its duration less that
+    of the events nested in it on the same thread."""
+    from torch.autograd import DeviceType
+    kernels: dict = {}
+    by_thread: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        ns = hasattr(e, "duration_ns")
+        dur = e.duration_ns() / 1e3 if ns else e.duration_us()
+        if e.device_type() == DeviceType.CUDA:
+            c, us = kernels.get(e.name(), (0, 0.0))
+            kernels[e.name()] = (c + 1, us + dur)
+        else:
+            start = e.start_ns() / 1e3 if ns else e.start_us()
+            by_thread.setdefault(e.start_thread_id(), []).append(
+                (start, -dur, e.name()))
+    host: dict = {}
+    for events in by_thread.values():
+        events.sort()
+        stack = []                      # [end, name, self us] of open events
+        for start, neg_dur, name in events:
+            while stack and stack[-1][0] <= start:
+                _, done, self_us = stack.pop()
+                c, us = host.get(done, (0, 0.0))
+                host[done] = (c + 1, us + self_us)
+            if stack:
+                stack[-1][2] += neg_dur
+            stack.append([start - neg_dur, name, -neg_dur])
+        for _, done, self_us in stack:
+            c, us = host.get(done, (0, 0.0))
+            host[done] = (c + 1, us + self_us)
+    return {"kernels": kernels, "host": host}
 
 
 def device_ms(fn, reps: int) -> dict:

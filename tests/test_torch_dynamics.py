@@ -175,3 +175,60 @@ def test_mh_nonfinite_rejects():
     init = torch.zeros(2, 2)
     out = tmh.select(torch.tensor([0.0, 1.0]), prop, init)
     assert torch.equal(out, torch.tensor([[0.0, 0.0], [2.0, 3.0]]))
+
+
+@pytest.mark.parametrize("merged", [True, False], ids=["merged", "forward"])
+def test_u1_verbose_series_match(merged):
+    """dynamics.verbose: energy, logdet and logprob = energy - logdet
+    after every leapfrog step, forward then backward for the merged
+    kernel, (steps, nb) each; 1e-10 against the reference."""
+    import dataclasses
+    dyn, params, masks, _ = make()
+    vcfg = dataclasses.replace(dyn.config, verbose=True)
+    vdyn = Dynamics(vcfg, dyn.network_config, dtype=jnp.float64)
+    tdyn = port_dynamics(vdyn, params, masks)
+    x = vdyn.random_x(jax.random.PRNGKey(41))
+    key = jax.random.PRNGKey(42)
+    if merged:
+        _, jm = vdyn.apply_transition_fb(params, masks, x, 2.5, key)
+        _, tm = tdyn.apply_transition_fb(to_torch(x), 2.5,
+                                         **fb_draws(vdyn, x, key))
+        steps = 2 * vdyn.nlf
+    else:
+        v = vdyn.random_v(jax.random.PRNGKey(43), x)
+        _, _, jm = vdyn.transition_kernel(params, masks, jax_state(x, v),
+                                          True, with_metrics=True)
+        jm = {"per_step": jm}
+        _, _, tm = tdyn.transition_kernel(
+            TState(to_torch(x), to_torch(v), 1.0), True, with_metrics=True)
+        steps = vdyn.nlf
+    assert set(tm["per_step"]) == {"energy", "logdet", "logprob"}
+    for k, t in tm["per_step"].items():
+        assert tuple(t.shape) == (steps, x.shape[0])
+        _close(t, jm["per_step"][k])
+    _close(tm["per_step"]["logprob"],
+           tm["per_step"]["energy"] - tm["per_step"]["logdet"], 1e-13)
+    # without verbose no series is kept
+    _, _, _, quiet = make()
+    _, qm = quiet.apply_transition_fb(to_torch(x), 2.5,
+                                      **fb_draws(vdyn, x, key))
+    assert "per_step" not in qm
+
+
+@pytest.mark.parametrize("c1", [0.0, -0.331], ids=["wilson", "c1"])
+def test_su3_verbose_series_match(c1):
+    """The SU(3) series (energy from the carried traces, or from the full
+    action where c1 != 0), the JAX side op by op; 1e-10."""
+    from torch_parity import make_su3, su3_fields
+    with jax.disable_jit():
+        dyn, params, masks, tdyn = make_su3(nlf=1, c1=c1, verbose=True)
+        x, _ = su3_fields(seed=44)
+        key = jax.random.PRNGKey(45)
+        _, jm = dyn.apply_transition_fb(params, masks, x, 5.7, key)
+        with torch.no_grad():
+            _, tm = tdyn.apply_transition_fb(to_torch(x), 5.7,
+                                             **fb_draws(dyn, x, key))
+    assert set(tm["per_step"]) == {"energy", "logdet", "logprob"}
+    for k, t in tm["per_step"].items():
+        assert tuple(t.shape) == (2, 2)
+        _close(t, jm["per_step"][k])

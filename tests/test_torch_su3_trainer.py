@@ -1,0 +1,129 @@
+"""One SU(3) train step of the port's Trainer against the JAX package's,
+from the same state and draws (2^4, 2 chains, complex128, the JAX side op
+by op): loss and grad_norm to rtol 1e-9, params and Adam moments to 1e-8
+(Adam's first update is ~lr * sign(g), so the params inherit the
+gradients' agreement scaled by lr / (|g| + eps)); the regression gate
+grad_norm > 0 with no non-finite entry; and the flowed eval observables
+(tests/test_flow_eval.py)."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from l2hmc_torch.configs import get_config as tget_config
+from l2hmc_torch.train.trainer import Trainer as TTrainer
+from l2hmc_tpu.configs import get_config
+from l2hmc_tpu.train.trainer import Trainer
+from torch_parity import (eager, fb_draws, grad_pairs,  # noqa: F401
+                          params_to_numpy, to_torch)
+
+torch.set_num_threads(1)
+
+BASE = [
+    "dynamics.nchains=2", "dynamics.latvolume=[2, 2, 2, 2]",
+    "dynamics.nleapfrog=1", "dynamics.eps=0.05", "network.units=[4]",
+    "precision=float64", "steps.nera=1", "steps.nepoch=2", "steps.test=2",
+    "learning_rate.clip_norm=1.0",
+]
+
+
+def _adam_state(opt_state):
+    (adam,) = [n for n in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda n: hasattr(n, "mu")) if hasattr(n, "mu")]
+    return adam
+
+
+def test_su3_train_step_matches(eager):
+    jtr = Trainer(get_config(BASE, group="SU3"))
+    ts, x = jtr.init_state(jax.random.PRNGKey(0))
+    ttr = TTrainer(tget_config(BASE, group="SU3"), device="cpu")
+    assert ttr.dtype == torch.complex128
+    ttr.dynamics.load_jax_params(params_to_numpy(ts.params),
+                                 np.asarray(ts.masks))
+    key = jax.random.PRNGKey(10)
+    k_main = jax.random.split(key, 3)[0]
+    draws = fb_draws(jtr.dynamics, x, k_main, training=True)
+    ts, jx, jm = jtr.train_step(ts, x, 6.0, key)
+    tx, tm = ttr.train_step(to_torch(x), 6.0, draws=draws)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-9)
+    np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=1e-9)
+    assert float(tm["grad_norm"]) > 0
+    assert int(tm["grad_nonfinite"]) == int(jm["grad_nonfinite"]) == 0
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-9, rtol=0)
+    for k in ("plaqs", "intQ", "sinQ", "dQint", "checkSU_mean",
+              "checkSU_max", "acc"):
+        np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
+                                   atol=1e-9, rtol=0, err_msg=k)
+    adam = _adam_state(ts.opt_state)
+    n = 0
+    moments = {"exp_avg": dict((a, c) for a, _, c in
+                               grad_pairs(ttr.dynamics, adam.mu, None)),
+               "exp_avg_sq": dict((a, c) for a, _, c in
+                                  grad_pairs(ttr.dynamics, adam.nu, None))}
+    for name, t, j in grad_pairs(ttr.dynamics, ts.params, None):
+        np.testing.assert_allclose(t.detach().numpy(), j, atol=1e-8, rtol=0,
+                                   err_msg=name)
+        for mk, table in moments.items():
+            np.testing.assert_allclose(
+                ttr.optimizer.state[t][mk].numpy(), table[name], atol=1e-8,
+                rtol=0, err_msg=f"{name} {mk}")
+        n += 1
+    assert n == len(list(ttr.dynamics.parameters()))
+
+
+FLOW = BASE + ["precision=float32", "flow_eps=0.05", "nchains=2"]
+
+
+@pytest.mark.parametrize("flow_nsteps", [2, 0])
+def test_eval_emits_flow_metrics_only_when_asked(flow_nsteps):
+    tr = TTrainer(tget_config(FLOW + [f"flow_nsteps={flow_nsteps}"],
+                              group="SU3"), device="cpu")
+    assert tr.dtype == torch.complex64
+    gen = torch.Generator().manual_seed(0)
+    for job in ("eval", "hmc"):
+        tr.evaluate(gen, job_type=job, nsteps=2)
+        h = tr.histories[job].get_dataset()
+        for k in ("flowQ", "flow_plaq", "flow_t2E"):
+            assert (k in h) == (flow_nsteps > 0), (job, k)
+        if flow_nsteps:
+            assert h["flowQ"].shape == (2, 2)
+            assert np.isfinite(h["flowQ"]).all()
+            assert (h["flow_plaq"] > h["plaqs"]).all()   # the flow smooths
+            assert (h["flow_t2E"] >= 0).all()
+    assert "plaqs" in tr.histories["hmc"].get_dataset()
+
+
+def test_flow_metrics_match_reference(eager):
+    overrides = BASE + ["flow_nsteps=2", "flow_eps=0.05"]
+    jtr = Trainer(get_config(overrides, group="SU3"))
+    ttr = TTrainer(tget_config(overrides, group="SU3"), device="cpu")
+    x = jtr.dynamics.random_x(jax.random.PRNGKey(3))
+    jf, tf = jtr._flow_metrics(x), ttr._flow_metrics(to_torch(x))
+    assert tf.keys() == jf.keys()
+    for k in tf:
+        np.testing.assert_allclose(tf[k].numpy(), np.asarray(jf[k]),
+                                   atol=1e-10, rtol=0, err_msg=k)
+
+
+def test_su3_warmup_stops_on_stationarity_and_mesh_raises():
+    tr = TTrainer(tget_config(FLOW, group="SU3"), device="cpu")
+    calls = []
+    real = tr.hmc_step
+
+    def counted(*a, **k):
+        calls.append(1)
+        x, m = real(*a, **k)
+        m["plaqs"] = torch.full_like(m["plaqs"], 0.5)   # flat series
+        return x, m
+    tr.hmc_step = counted
+    x = tr.dynamics.random_x(torch.Generator().manual_seed(1))
+    tr.warmup(x, 6.0, torch.Generator().manual_seed(2), nsteps=40)
+    assert len(calls) == 10           # two 5-step windows, then stationary
+    calls.clear()
+    tr.warmup(x, 6.0, torch.Generator().manual_seed(2), nsteps=12, exact=True)
+    assert len(calls) == 12
+    with pytest.raises(NotImplementedError, match="18-19"):
+        TTrainer(tget_config(FLOW + ["mesh_shape=[2, 2]"], group="SU3"),
+                 device="cpu")
