@@ -45,7 +45,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      train steps (kernels per step, busy share, top device and host ops,
      peak memory), the hot ops' times beside their bounds with their
      calls per train step (l2hmc_torch.utils.su3_times); and
-     `l2hmc_torch.train4dsu3.main` with 5 train steps.
+     `l2hmc_torch.train4dsu3.main` with 5 train steps;
+  9. `parallel/` and `ops/su3_algebra` (the card is one, so every process
+     group here has one rank; NCCL refuses two ranks on one device, and
+     the multi-rank exchanges are held on the CPU over gloo by
+     tests/test_torch_parallel.py): `su3_algebra` — log3x3, diffexp and
+     su3_jacobian on the card against the CPU at complex128;
+     `dp_u1_path` — the default U(1) width through `build_experiment` with
+     a real NCCL process group of world size 1 and mesh_shape=[1, 1], 3
+     train, 3 eval and 3 HMC steps, the collectives of one train step and
+     the force kernels' launches counted, and one train step bit for bit
+     equal to the Trainer's without a mesh from the same state and draws;
+     `sharded_su3_path` — `ShardedTrainerSU3` on the (1, 1) mesh, over a
+     Trainer's dynamics and optimizer update, at 8^4, 8 chains, nleapfrog
+     4, units [32, 32], float32, BN and dropout off, no flowed loss: 2
+     train, 1 eval and 1 HMC step, its first train step against the
+     Trainer's (loss and grad_norm rtol 1e-5, parameters and x atol
+     1e-5).
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound;
 the last is {"ok": true, "device": {...}}.
@@ -55,10 +71,12 @@ exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import copy
 import glob
 import json
 import math
 import os
+import socket
 import sys
 import tempfile
 import time
@@ -87,6 +105,8 @@ OFF_ALIGNMENT = "a view that is not 16-byte aligned"
 def finite(v) -> bool:
     if isinstance(v, dict):
         return all(finite(x) for x in v.values())
+    if isinstance(v, list):
+        return all(finite(x) for x in v)
     return isinstance(v, (int, float)) and math.isfinite(v)
 
 
@@ -210,8 +230,8 @@ def su3_phases(torch, card, u1_ncp) -> None:
     # the ordered start the plaquette stands still while every proposal
     # is rejected, which the stationarity criterion would take for
     # equilibrium; 200 self-tuned trajectories thermalize the lattice
-    ex = su3_run(torch, st.MAIN_SU3 + ["steps.nera=1", "steps.nepoch=5",
-                                       "steps.test=5", "steps.warmup=200"],
+    ex = su3_run(torch, st.MAIN_SU3 + ["steps.nera=1", "steps.nepoch=3",
+                                       "steps.test=3", "steps.warmup=200"],
                  "su3_main_path", flow=True)
     tr, cfg = ex.trainer, ex.cfg
     x = ex._x.contiguous()
@@ -299,6 +319,165 @@ def su3_phases(torch, card, u1_ncp) -> None:
     assert rc == 0, rc
     emit({"phase": "train4dsu3", "seconds": time.perf_counter() - t0,
           "train_steps": 5})
+
+
+def su3_algebra_phase(torch) -> None:
+    """log3x3, diffexp and su3_jacobian on the card against the same
+    functions on the CPU, complex128 (1e-10)."""
+    from l2hmc_torch.ops import su3 as g
+    from l2hmc_torch.ops import su3_algebra as alg
+    gen = torch.Generator().manual_seed(0)
+    x = g.random((4096, 3, 3), gen)
+    a = 0.3 * g.random_momentum((4096, 3, 3), gen)
+    gm = g.expm(a[0], s=2)
+
+    def fns(dev):
+        xd, ad, gd = x.to(dev), a.to(dev), gm.to(dev)
+        return {"log3x3": alg.log3x3(xd),
+                "diffexp": alg.diffexp(alg.su3ad(ad)),
+                "su3_jacobian": alg.su3_jacobian(lambda u: gd @ u, xd[0])[1]}
+
+    cpu, card = fns("cpu"), fns("cuda")
+    torch.cuda.synchronize()
+    err = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in cpu}
+    emit({"phase": "su3_algebra", "dtype": "complex128", "batch": 4096,
+          "max_abs_err_card_vs_cpu": err})
+    assert all(e <= 1e-10 for e in err.values()), err
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_phases(torch, uk) -> None:
+    """dp_u1_path and sharded_su3_path in one NCCL process group of world
+    size 1, which is torn down afterwards."""
+    from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.parallel import mesh as pmesh
+    from l2hmc_torch.parallel.sharded_train import ShardedTrainerSU3
+    from l2hmc_torch.train.trainer import Trainer
+    from l2hmc_torch.utils import su3_times as st
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+            ex = build_experiment(["mesh_shape=[1, 1]", "steps.nera=1",
+                                   "steps.nepoch=3", "steps.test=3",
+                                   "save=true", f"outdir={out}"],
+                                  device="cuda")
+            assert torch.distributed.get_backend() == "nccl"
+            uk.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = ex.run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = uk.launch_counts()
+        assert finite(summary), summary
+        assert launches["u1_force_fwd"] > 0 and launches["u1_force_bwd"] > 0
+        dp, cfg = ex.trainer, ex.cfg
+        assert dp.mesh is not None and dp.mesh.shape == (1, 1)
+        # one step from the run's state and one set of draws, with the mesh
+        # and without: at world 1 every collective is the identity
+        plain = Trainer(cfg, device="cuda")
+        plain.dynamics.load_state_dict(dp.dynamics.state_dict())
+        # a deep copy: load_state_dict would share the moment tensors
+        plain.optimizer.load_state_dict(copy.deepcopy(
+            dp.optimizer.state_dict()))
+        plain.step, plain.updates = dp.step, dp.updates
+        x = ex._x.contiguous()
+        gen = torch.Generator(x.device).manual_seed(1)
+        draws = {"v": dp.dynamics.random_v(x, gen),
+                 "dropout_masks": dp.dynamics.random_dropout_masks(
+                     x.shape[0], gen),
+                 "u": torch.rand((x.shape[0],), generator=gen,
+                                 device=x.device)}
+        beta = float(cfg.annealing_schedule.beta_final)
+        dp.mesh.counts.clear()
+        x1, m1 = dp.train_step(x, beta, draws=draws)
+        collectives = dict(dp.mesh.counts)
+        x0, m0 = plain.train_step(x, beta, draws=draws)
+        torch.cuda.synchronize()
+        equal = (torch.equal(x1, x0) and torch.equal(m1["loss"], m0["loss"])
+                 and all(torch.equal(a, b) for a, b in zip(
+                     dp.dynamics.state_dict().values(),
+                     plain.dynamics.state_dict().values())))
+        emit({"phase": "dp_u1_path", "seconds": seconds,
+              "backend": "nccl", "world_size": 1, "mesh_shape": [1, 1],
+              "launches": launches, "collectives_per_train_step": collectives,
+              "train_step_bit_equal_to_no_mesh": equal, "summary": summary})
+        assert equal, "the mesh's train step differs from the Trainer's"
+        assert collectives.get("all_reduce", 0) > 0, collectives
+        del ex, dp, plain
+        torch.cuda.empty_cache()
+
+        cfg = st.MAIN_SU3 + ["loss.charge_flow_nsteps=0", "flow_nsteps=0",
+                             "dynamics.cold_start=false"]
+        from l2hmc_torch.configs import get_config
+        cfg = get_config(cfg, group="SU3")
+        mesh = pmesh.Mesh(1, 1)
+        # the sharded steps on a second Trainer's dynamics and optimizer
+        # update (the Trainer routes only l > 1 here; the class is sound
+        # at 1), against the Trainer's own steps from the same weights
+        two = Trainer(cfg, device="cuda")
+        sh = ShardedTrainerSU3(cfg, mesh, two.device, two.dynamics,
+                               two._optimizer_update)
+        one = Trainer(cfg, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(2)
+        x = one.dynamics.random_x(gen)
+        draws = {"v": one.dynamics.random_v(x, gen),
+                 "u": torch.rand((x.shape[0],), generator=gen,
+                                 device=x.device)}
+        beta = float(cfg.annealing_schedule.beta_final)
+        mesh.counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs, ms = sh.train_step(sh.shard(x), beta, draws=draws)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        collectives = dict(mesh.counts)
+        x0, m0 = one.train_step(x, beta, draws=draws)
+        rel = float(abs(ms["loss"] - m0["loss"]) / abs(m0["loss"]))
+        # Adam's first update is ~lr * sign(g): the parameters alone would
+        # not see a gradient off by a constant factor
+        grel = float(abs(ms["grad_norm"] - m0["grad_norm"])
+                     / m0["grad_norm"])
+        perr = max(float((a.detach() - b.detach()).abs().max()) for a, b
+                   in zip(sh.dynamics.parameters(),
+                          one.dynamics.parameters()))
+        xerr = float((sh.gather(xs) - x0).abs().max())
+        t0 = time.perf_counter()
+        xs, ms2 = sh.train_step(xs, beta, gen)
+        xs, me = sh.eval_step(xs, beta, gen)
+        xs, mh_ = sh.hmc_step(xs, beta, cfg.dynamics.eps_hmc,
+                              2 * cfg.dynamics.nleapfrog, gen)
+        torch.cuda.synchronize()
+        rest_s = time.perf_counter() - t0
+        metrics = {"loss": [float(ms["loss"]), float(ms2["loss"])],
+                   "grad_norm": [float(ms["grad_norm"]),
+                                 float(ms2["grad_norm"])],
+                   "eval_acc": float(me["acc"].mean()),
+                   "hmc_acc": float(mh_["acc"].mean())}
+        emit({"phase": "sharded_su3_path", "mesh_shape": [1, 1],
+              "lattice": list(cfg.dynamics.latvolume),
+              "nchains": cfg.dynamics.nchains, "dtype": "float32",
+              "first_train_step_ms": first_ms,
+              "train_eval_hmc_seconds": rest_s,
+              "collectives_first_train_step": collectives,
+              "loss_rel_err_vs_trainer": rel,
+              "grad_norm_rel_err_vs_trainer": grel,
+              "param_max_abs_err_vs_trainer": perr,
+              "x_max_abs_err_vs_trainer": xerr, **metrics})
+        assert finite(metrics) and metrics["grad_norm"][0] > 0, metrics
+        assert int(ms["grad_nonfinite"]) == 0
+        assert rel <= 1e-5 and grel <= 1e-5, (rel, grel)
+        assert perr <= 1e-5 and xerr <= 1e-5, (perr, xerr)
+    finally:
+        pmesh.teardown_distributed()
+        for k in env:
+            os.environ.pop(k, None)
 
 
 def main() -> int:
@@ -533,6 +712,8 @@ def main() -> int:
     del ex, tr, x, xe, steps, prof
     torch.cuda.empty_cache()
     su3_phases(torch, card, u1_ncp)
+    su3_algebra_phase(torch)
+    parallel_phases(torch, uk)
 
     # -- the kernels line -----------------------------------------------------
     # `ms` is the CUDA-event time of back-to-back wrapper calls (host

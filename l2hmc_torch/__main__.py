@@ -10,11 +10,17 @@ Special overrides:
   mode=debug        tiny debug run (reference conf/mode/debug.yaml)
   device=cpu        run on the CPU (default: the CUDA card)
   outdir=...        output directory
+  mesh_shape=[d, l] under torchrun: d ranks over the chains, l over the
+                    SU(3) lattice's t axis (default: the chains over all)
   --config PATH     load a YAML config instead of the defaults
+
+Several processes: torchrun --nproc_per_node N -m l2hmc_torch ...; rank 0
+alone prints the summary and writes the output directory.
 """
 from __future__ import annotations
 
 import logging
+import os
 import sys
 
 DEBUG_OVERRIDES = [
@@ -28,8 +34,10 @@ DEBUG_OVERRIDES = [
 
 
 def main(argv=None):
+    # under torchrun rank 0 alone logs progress
+    rank = int(os.environ.get("RANK", "0") or 0)
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if rank == 0 else logging.WARNING,
         format="[%(asctime)s][%(name)s][%(levelname)s] %(message)s",
     )
     argv = list(argv if argv is not None else sys.argv[1:])
@@ -66,8 +74,13 @@ def main(argv=None):
         ex = Experiment(load_yaml(config_path), device=device)
     else:
         ex = build_experiment(overrides, group=group, device=device)
-    summary = ex.run()
-    print(summary)
+    try:
+        summary = ex.run()
+        if ex.is_main:
+            print(summary)
+    finally:
+        from l2hmc_torch.parallel.mesh import teardown_distributed
+        teardown_distributed()
     return 0
 
 

@@ -6,10 +6,19 @@ build everything from an ExperimentConfig, train with the beta ladder,
 evaluate the trained sampler, run the matched-cost HMC baseline, and report
 `model_improvement = mean(dQint_eval) / mean(dQint_hmc)`.
 
-Runs on one device, the card unless `device="cpu"` is asked for. All
-random draws come from one `torch.Generator` on that device, seeded from
-`cfg.seed`; the network weights and masks come from a CPU generator of the
-same seed, so they do not depend on the device.
+Runs on the card unless `device="cpu"` is asked for. All random draws
+come from one `torch.Generator` on that device, seeded from `cfg.seed`;
+the network weights and masks come from a CPU generator of the same seed,
+so they do not depend on the device.
+
+Several processes (torchrun, or `setup_distributed` with an explicit
+init_method) join one process group before any device is chosen, each on
+its own device, and split the work over a mesh (`parallel/mesh.py`):
+`mesh_shape=[d, l]` asks for d ranks over the chains and l over the SU(3)
+lattice's t axis; without it the chains split over all the ranks. Every
+rank draws the same global numbers and keeps its block, so a run on
+several ranks samples what one device samples. Rank 0 alone writes the
+output directory; the checkpoint holds the global x.
 """
 from __future__ import annotations
 
@@ -23,16 +32,40 @@ import numpy as np
 import torch
 
 from l2hmc_torch.configs import ExperimentConfig, get_config
+from l2hmc_torch.parallel import mesh as pmesh
 from l2hmc_torch.train.trainer import Trainer
 from l2hmc_torch.utils import checkpoint as ckpt
 
 log = logging.getLogger(__name__)
 
 
+def build_mesh(cfg: ExperimentConfig) -> Optional[pmesh.Mesh]:
+    """The mesh of the JAX package's routing (experiment.py:39-54):
+    `mesh_shape=[d, l]` as given; otherwise a data mesh over `ndevices`
+    (default: every rank) when that is more than one; else None, one
+    device."""
+    if cfg.mesh_shape is not None:
+        if len(cfg.mesh_shape) != 2:
+            raise ValueError(f"mesh_shape must be [n_data, n_lattice], got "
+                             f"{list(cfg.mesh_shape)}")
+        # n_lattice > 1: lattice-domain-decomposed SU(3)
+        # (parallel/sharded_train.py)
+        return pmesh.Mesh(int(cfg.mesh_shape[0]), int(cfg.mesh_shape[1]))
+    ndev = cfg.ndevices or pmesh.world_size()
+    if ndev > 1 or pmesh.world_size() > 1:
+        return pmesh.Mesh(ndev, 1)
+    return None
+
+
 class Experiment:
     def __init__(self, cfg: ExperimentConfig, device=None):
+        # join the process group before any device query, so each rank
+        # takes its own card (reference experiment/pytorch/experiment.py:154)
+        self.rank = pmesh.setup_distributed(device)
+        self.is_main = self.rank == 0
         self.cfg = cfg
-        self.trainer = Trainer(cfg, device=device)
+        self.mesh = build_mesh(cfg)
+        self.trainer = Trainer(cfg, device=device, mesh=self.mesh)
         self.device = self.trainer.device
         self.outdir = cfg.outdir or os.path.join(
             "outputs", time.strftime("%Y-%m-%d-%H%M%S"))
@@ -41,7 +74,7 @@ class Experiment:
         self._x: Optional[torch.Tensor] = None
         self._start_era = 0
         self._beta_init: Optional[float] = None
-        if cfg.use_tb or cfg.use_wandb or cfg.init_aim:
+        if (cfg.use_tb or cfg.use_wandb or cfg.init_aim) and self.is_main:
             from l2hmc_torch.utils.trackers import Trackers
             self.trainer.trackers = Trackers(
                 self.outdir, use_tb=cfg.use_tb, use_wandb=cfg.use_wandb,
@@ -52,7 +85,7 @@ class Experiment:
     def setup(self) -> torch.Tensor:
         if self._x is not None:
             return self._x
-        self._x = self.trainer.dynamics.random_x(self.generator)
+        self._x = self.trainer.random_x(self.generator)
         if self.cfg.restore:
             tree = ckpt.restore_checkpoint(self.outdir,
                                            map_location=self.device)
@@ -66,7 +99,7 @@ class Experiment:
                 tr.step = int(tree["step"])
                 tr.updates = int(tree["updates"])
                 tr.restore_accumulated_grads(tree.get("acc_grads"))
-                self._x = tree["x"].to(self.device)
+                self._x = self.trainer.shard(tree["x"].to(self.device))
                 self.generator.set_state(tree["generator"].cpu())
                 self._start_era = int(tree["era"]) + 1
                 self._beta_init = float(tree["beta"])
@@ -85,6 +118,14 @@ class Experiment:
         """Per-era durable state (reference trainer.py:1826-1829)."""
         if not self.cfg.save:
             return
+        x = self.trainer.gather(x)     # a collective: every rank takes part
+        if self.is_main:
+            self._write_checkpoint(era, x, beta)
+        if self.mesh is not None:
+            # no rank runs ahead of the write (a resume reads it)
+            self.mesh.barrier()
+
+    def _write_checkpoint(self, era, x, beta):
         tree = ckpt.make_resume_tree(self.trainer, x, self.generator,
                                      era=era, beta=beta)
         ckpt.save_checkpoint(self.outdir, self.trainer.step, tree)
@@ -103,8 +144,9 @@ class Experiment:
             beta_init=self._beta_init, max_eras=max_eras,
             era_callback=self._era_checkpoint)
         self._x = x
-        self.trainer.histories["train"].save(self.outdir, "train")
-        self.trainer.timers["train"].save_and_write(self.outdir)
+        if self.is_main:
+            self.trainer.histories["train"].save(self.outdir, "train")
+            self.trainer.timers["train"].save_and_write(self.outdir)
         return self.trainer.histories["train"]
 
     def evaluate(self, job_type: str = "eval", nsteps: Optional[int] = None,
@@ -116,6 +158,8 @@ class Experiment:
         self.trainer.evaluate(self.generator, job_type=job_type,
                               nsteps=nsteps, x=x,
                               dynamic_step_size=dynamic_step_size)
+        if not self.is_main:
+            return self.trainer.histories[job_type]
         self.trainer.histories[job_type].save(self.outdir, job_type)
         rates = self.trainer.timers[job_type].get_eval_rate()
         os.makedirs(self.outdir, exist_ok=True)
@@ -133,6 +177,8 @@ class Experiment:
             return float("nan")
         denom = float(np.mean(hh["dQint"]))
         improvement = float(np.mean(he["dQint"])) / max(denom, 1e-16)
+        if not self.is_main:
+            return improvement
         os.makedirs(self.outdir, exist_ok=True)
         with open(os.path.join(self.outdir, "model_improvement.txt"),
                   "w") as f:
@@ -187,6 +233,8 @@ class Experiment:
             "eval_stats": self.sampler_stats("eval"),
             "hmc_stats": self.sampler_stats("hmc"),
         }
+        if not self.is_main:
+            return summary
         os.makedirs(self.outdir, exist_ok=True)
         with open(os.path.join(self.outdir, "summary.json"), "w") as f:
             json.dump(summary, f, indent=2)

@@ -159,6 +159,10 @@ class Dynamics(nn.Module):
             self.xnets_second = None
         self.register_buffer(
             "masks", torch.zeros((self.nlf, self.mask_dim), dtype=rdt))
+        #: the networks' batch-norm mean over the batch (None: this
+        #: process' chains; the data-parallel trainer sets the mean over
+        #: every rank's chains)
+        self.batch_mean = None
         self.init_params(generator)
 
     # ------------------------------------------------------------------
@@ -347,7 +351,8 @@ class Dynamics(nn.Module):
             xin = self._vec_flatten(comp.su3_to_vec(x))
             fin = self._vec_flatten(comp.su3_to_vec(force))
         return vnet(xin, fin, training=training, dropout_mask=dmask,
-                    collect_bn=self._collect_bn(training))
+                    collect_bn=self._collect_bn(training),
+                    mean_fn=self.batch_mean)
 
     def _call_xnet(self, xnet, xm, v, training, dmask):
         """(m*x, v) -> (s, t, q); U(1) x rep is [cos, sin]
@@ -355,7 +360,8 @@ class Dynamics(nn.Module):
         nb = xm.shape[0]
         xin = torch.cat([torch.cos(xm), torch.sin(xm)], dim=-1)
         return xnet(xin, v.reshape(nb, -1), training=training,
-                    dropout_mask=dmask, collect_bn=self._collect_bn(training))
+                    dropout_mask=dmask, collect_bn=self._collect_bn(training),
+                    mean_fn=self.batch_mean)
 
     # ------------------------------------------------------------------
     # Single updates

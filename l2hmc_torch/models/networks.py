@@ -84,6 +84,10 @@ def _scaled_tanh(layer: ScaledTanh, z: torch.Tensor, cd=None):
     return torch.exp(coeff) * torch.tanh(_linear(layer, z, cd))
 
 
+def _batch_mean(z: torch.Tensor) -> torch.Tensor:
+    return torch.mean(z, dim=0, keepdim=True)
+
+
 def _uniform_(t: torch.Tensor, bound: float, generator=None) -> None:
     t.uniform_(-bound, bound, generator=generator)
 
@@ -192,10 +196,13 @@ class LeapfrogLayer(nn.Module):
     def forward(self, x: torch.Tensor, v: torch.Tensor,
                 training: bool = False,
                 dropout_mask: Optional[torch.Tensor] = None,
-                collect_bn: bool = False):
+                collect_bn: bool = False,
+                mean_fn: Optional[Callable] = None):
         """Returns (s, t, q), plus (batch_mean, batch_var) of the BN input
         (detached; None when no batch statistics ran) when collect_bn.
-        Dropout runs only in training and only with a mask given."""
+        Dropout runs only in training and only with a mask given.
+        `mean_fn` replaces the batch statistics' mean over this batch (the
+        data-parallel trainer's mean over every rank's chains)."""
         cd = self.compute_dtype
         out_dtype = x.dtype
         if cd is not None:
@@ -217,8 +224,9 @@ class LeapfrogLayer(nn.Module):
                 if cd is not None:
                     mean, var = mean.to(cd), var.to(cd)
             else:
-                mean = torch.mean(z, dim=0, keepdim=True)
-                var = torch.mean(torch.square(z - mean), dim=0, keepdim=True)
+                mean_of = mean_fn or _batch_mean
+                mean = mean_of(z)
+                var = mean_of(torch.square(z - mean))
                 if collect_bn:
                     bn_stats = (mean[0].detach().to(out_dtype),
                                 var[0].detach().to(out_dtype))

@@ -19,8 +19,20 @@ SU(3): the lattice is complex (complex128 at precision=float64, else
 complex64), every train step reports the unitarity monitors `checkSU_*`
 of its output, HMC steps report the engine's free plaquettes, eval and HMC
 draws add the Wilson-flowed observables when `flow_nsteps > 0`, and the
-warmup stops on plaquette stationarity. Lattice-sharded training (a
-`mesh_shape` override) waits for the port of `parallel/`.
+warmup stops on plaquette stationarity.
+
+Parallelism (`parallel/`, over `torch.distributed`, one process per
+device). With a 1-D data mesh the chains split over the ranks: each rank
+runs the step on its own chains, batch-norm statistics are those of the
+global batch (an all-reduce of the sums), and the gradients are averaged
+over the ranks in one flat all-reduce before counting, clipping and Adam,
+so every rank applies the same update. With a 2-D (data, lattice) mesh
+the steps come from `parallel/sharded_train.ShardedTrainerSU3` (SU(3)
+only). Either way every random draw is made at the global shape and
+sliced (`random_x`, `shard`), and every per-chain metric is gathered over
+the data axis before anything reads it, so the logged means, the warmup's
+eps, the plateau lr, the dynamic HMC eps and the stuck-chain redraw are
+decided on global means, alike on every rank.
 
 Timing: each timed region starts and ends with `torch.cuda.synchronize()`
 on the card, so a step time is device time, not enqueue time.
@@ -41,6 +53,7 @@ from l2hmc_torch.ops import lattice_u1
 from l2hmc_torch.ops import su3 as su3g
 from l2hmc_torch.ops import su3_comp as comp
 from l2hmc_torch.ops import wilson_flow as wf
+from l2hmc_torch.parallel import mesh as pmesh
 from l2hmc_torch.train.annealing import Annealer, ReduceLROnPlateau
 from l2hmc_torch.utils.history import History, summarize_dict
 from l2hmc_torch.utils.step_timer import StepTimer
@@ -48,6 +61,14 @@ from l2hmc_torch.utils.step_timer import StepTimer
 log = logging.getLogger(__name__)
 
 BN_MOMENTUM = 0.1
+
+#: per-chain metrics, (nb,) — gathered over the data axis of a mesh
+CHAIN_KEYS = frozenset({
+    "acc", "acc_mask", "sumlogdet", "plaqs", "p4x4", "intQ", "sinQ", "dQint",
+    "dQsin", "checkSU_mean", "checkSU_max", "flowQ", "flow_plaq",
+    "flow_t2E"})
+#: per-leapfrog verbose series, (steps, nb)
+SERIES_KEYS = frozenset({"energy", "logdet", "logprob"})
 
 
 def dtype_for(cfg: ExperimentConfig) -> torch.dtype:
@@ -60,12 +81,16 @@ def dtype_for(cfg: ExperimentConfig) -> torch.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The card unless the caller asks for the CPU; no silent fallback."""
+    """The card unless the caller asks for the CPU; no silent fallback.
+    A bare "cuda" in a process group is this process' own card,
+    cuda:LOCAL_RANK."""
     dev = torch.device(device if device is not None else "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "l2hmc_torch runs on a CUDA device by default, and CUDA is not "
             "available here; pass device=cpu to run on the CPU")
+    if pmesh.world_size() > 1:
+        dev = pmesh.local_device(dev)
     return dev
 
 
@@ -75,15 +100,13 @@ def _sync(device: torch.device) -> None:
 
 
 class Trainer:
-    def __init__(self, cfg: ExperimentConfig, device=None):
-        if cfg.mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape={list(cfg.mesh_shape)}: chain- and "
-                "lattice-sharded training (the JAX package's parallel/) is "
-                "not ported to l2hmc_torch yet (ROADMAP.md, Queue 1, items "
-                "18-19); the port runs on one device")
+    def __init__(self, cfg: ExperimentConfig, device=None,
+                 mesh: Optional[pmesh.Mesh] = None):
+        """`mesh`: None for one device; a (n, 1) mesh splits the chains
+        over n ranks; a (d, l > 1) mesh also splits the SU(3) lattice."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.dtype = dtype_for(cfg)
         net_cd = torch.bfloat16 if cfg.precision == "bfloat16" else None
         gen = torch.Generator().manual_seed(int(cfg.seed))
@@ -94,6 +117,7 @@ class Trainer:
         ).to(self.device)
         self.lattice = self.dynamics.lattice
         self.loss_fn = LatticeLoss(self.lattice, cfg.loss)
+        self.sharded = None
 
         lr = cfg.learning_rate
         self.optimizer = torch.optim.Adam(self.dynamics.parameters(),
@@ -121,6 +145,101 @@ class Trainer:
                        for j in ("train", "eval", "hmc", "warmup")}
         self.histories = {j: History() for j in ("train", "eval", "hmc")}
         self.trackers = None   # optional utils.trackers.Trackers fan-out
+
+        if mesh is not None:
+            # every rank starts from rank 0's weights and masks
+            pmesh.replicate(self.dynamics, mesh)
+            if mesh.n_lattice > 1:
+                from l2hmc_torch.parallel.sharded_train import (
+                    ShardedTrainerSU3)
+                self.sharded = ShardedTrainerSU3(
+                    cfg, mesh, self.device, dynamics=self.dynamics,
+                    update=self._optimizer_update)
+            else:
+                if cfg.dynamics.nchains % mesh.n_data:
+                    raise ValueError(
+                        f"nchains {cfg.dynamics.nchains} must divide the "
+                        f"'data' mesh axis ({mesh.n_data})")
+                if mesh.n_data > 1:
+                    # (with one rank on the data axis the local mean is
+                    # the global one: torch.mean, as without a mesh)
+                    self.dynamics.batch_mean = self._global_batch_mean
+
+    # ------------------------------------------------------------------
+    # Blocks of global tensors (the identity on one device)
+    # ------------------------------------------------------------------
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global lattice tensor."""
+        if self.sharded is not None:
+            return self.sharded.shard(x)
+        if self.mesh is not None:
+            return self.mesh.shard_chains(x)
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global lattice tensor from every rank's block."""
+        if self.sharded is not None:
+            return self.sharded.gather(x)
+        if self.mesh is not None:
+            return self.mesh.gather(x, "data", 0)
+        return x
+
+    def random_x(self, generator=None, nchains: Optional[int] = None):
+        """A fresh start of this rank's block, drawn at the global shape."""
+        if self.sharded is not None:
+            return self.sharded.random_x(generator)
+        return self.shard(self.dynamics.random_x(generator, nchains))
+
+    def _global_batch_mean(self, z: torch.Tensor) -> torch.Tensor:
+        """Batch-norm mean over every rank's chains, differentiable."""
+        tot = self.mesh.all_reduce(z.sum(dim=0, keepdim=True), "data",
+                                   autograd=True)
+        return tot / (z.shape[0] * self.mesh.n_data)
+
+    def _dp_draws(self, x, generator, draws: Optional[dict],
+                  training: bool) -> Optional[dict]:
+        """A data-parallel step's draws, this rank's chains of the global
+        ones: of `draws` when given, else drawn at the global shape in the
+        order the single-device step draws them (v, dropout masks, u)."""
+        if self.mesh is None:
+            return draws
+        dyn = self.dynamics
+        if draws is None:
+            n = x.shape[0] * self.mesh.n_data
+            vx = x.new_empty((n, *x.shape[1:]))
+            draws = {"v": dyn.random_v(vx, generator)}
+            if dyn._dropout_on(training):
+                draws["dropout_masks"] = dyn.random_dropout_masks(n,
+                                                                  generator)
+            draws["u"] = torch.rand((n,), generator=generator,
+                                    dtype=dyn.real_dtype, device=x.device)
+        out = {}
+        for k, t in draws.items():
+            t = t.to(x.device)
+            out[k] = self.mesh.block(t, "data", 1 if k == "dropout_masks"
+                                     else 0)
+        return out
+
+    def _gather_metrics(self, out: dict) -> dict:
+        """Per-chain metrics of every rank's chains, on every rank."""
+        if self.mesh is None:
+            return out
+        for k, t in out.items():
+            if k in CHAIN_KEYS:
+                out[k] = self.mesh.gather(t, "data", 0)
+            elif k in SERIES_KEYS:
+                out[k] = self.mesh.gather(t, "data", 1)
+        return out
+
+    def _allreduce_grads(self, grads: list) -> None:
+        """Average the gradients over the data axis, in place, in one flat
+        all-reduce."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        self.mesh.all_reduce(flat, "data")
+        flat /= self.mesh.n_data
+        for g, c in zip(grads, torch.split(flat,
+                                           [g.numel() for g in grads])):
+            g.copy_(c.view_as(g))
 
     # ------------------------------------------------------------------
     # Learning rate
@@ -154,8 +273,13 @@ class Trainer:
     def train_step(self, x, beta: float, generator=None,
                    draws: Optional[dict] = None):
         """One training step from x. `draws` may inject the main pass's
-        random draws: {"v", "u", "dropout_masks"}. Returns (x_out,
-        metrics)."""
+        random draws: {"v", "u", "dropout_masks"} (on a mesh: the global
+        ones). Returns (x_out, metrics)."""
+        if self.sharded is not None:
+            xout, out = self.sharded.train_step(x, beta, generator, draws)
+            self.step += 1
+            return xout, self._gather_metrics(out)
+        draws = self._dp_draws(x, generator, draws, training=True)
         dyn = self.dynamics
         aux_w = self.cfg.loss.aux_weight
         transition = self._transition()
@@ -168,8 +292,12 @@ class Trainer:
                                       metrics["acc"])
         if aux_w > 0:
             # second pass from a fresh draw (trainer.py:1342-1353)
-            y = dyn.random_x(generator, x.shape[0])
-            _, maux = transition(y, beta, generator, training=True)
+            y = self.random_x(generator,
+                              x.shape[0] * (self.mesh.n_data if self.mesh
+                                            else 1))
+            _, maux = transition(
+                y, beta, generator, training=True,
+                **(self._dp_draws(y, generator, None, True) or {}))
             mca = maux["mc_states"]
             loss = loss + aux_w * self.loss_fn.calc_loss(
                 mca.init.x, mca.proposed.x, maux["acc"])
@@ -177,6 +305,8 @@ class Trainer:
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
+            if self.mesh is not None:
+                self._allreduce_grads(grads)
             if self.cfg.dynamics.eps_fixed:
                 dyn.xeps.grad.zero_()
                 dyn.veps.grad.zero_()
@@ -192,8 +322,12 @@ class Trainer:
             if bn_stats:
                 self._apply_bn_ema(bn_stats)
         self.step += 1
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss = self.mesh.all_reduce(loss.clone(), "data") \
+                / self.mesh.n_data
         out = {
-            "loss": loss.detach(),
+            "loss": loss,
             "acc": metrics["acc"].detach(),
             "acc_mask": metrics["acc_mask"],
             "sumlogdet": metrics["sumlogdet"].detach(),
@@ -216,7 +350,7 @@ class Trainer:
                 # checks only in its standalone train4dSU3 script,
                 # train4dSU3.py:157,191)
                 out["checkSU_mean"], out["checkSU_max"] = su3g.checkSU(xout)
-        return xout, out
+        return xout, self._gather_metrics(out)
 
     def _optimizer_update(self, params, grads, grad_norm):
         """Clip, accumulate, set the lr and apply Adam."""
@@ -297,6 +431,10 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, x, beta: float, generator=None,
                   draws: Optional[dict] = None):
+        if self.sharded is not None:
+            xout, out = self.sharded.eval_step(x, beta, generator, draws)
+            return xout, self._gather_metrics(out)
+        draws = self._dp_draws(x, generator, draws, training=False)
         xout, metrics = self._transition()(x, beta, generator,
                                            training=False, **(draws or {}))
         mc = metrics["mc_states"]
@@ -308,12 +446,17 @@ class Trainer:
         if "per_step" in metrics:
             out.update(metrics["per_step"])
         out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
-        return xout, out
+        return xout, self._gather_metrics(out)
 
     @torch.no_grad()
     def hmc_step(self, x, beta: float, eps: float, generator=None,
                  draws: Optional[dict] = None):
         nlf = self.evals_per_step
+        if self.sharded is not None:
+            xout, out = self.sharded.hmc_step(x, beta, eps, nlf, generator,
+                                              draws)
+            return xout, self._gather_metrics(out)
+        draws = self._dp_draws(x, generator, draws, training=False)
         xout, metrics = self.dynamics.apply_transition_hmc(
             x, beta, generator, eps=eps, nleapfrog=nlf, **(draws or {}))
         mc = metrics["mc_states"]
@@ -323,7 +466,7 @@ class Trainer:
             # SU(3): the engine's free action traces replace the
             # observable path's plaquette (the same number)
             out["plaqs"] = metrics["plaqs"]
-        return xout, out
+        return xout, self._gather_metrics(out)
 
     # ------------------------------------------------------------------
     # Wilson-flowed eval observables (flow_nsteps > 0, SU(3) only):
@@ -340,6 +483,9 @@ class Trainer:
     @torch.no_grad()
     def _flow_metrics(self, x) -> dict:
         ns = int(self.cfg.flow_nsteps)
+        if self.sharded is not None:
+            return self._gather_metrics(self.sharded.flow_metrics(
+                x, float(self.cfg.flow_eps), ns))
         lat = tuple(self.cfg.dynamics.latvolume)
         nb = x.shape[0]
         res = wf.flow(comp.from_complex_lattice(x), float(self.cfg.flow_eps),
@@ -347,8 +493,9 @@ class Trainer:
         obs = wf.flow_observables(res.t, res.tr, self.lattice.volume)
         # plaq/t2E are measured at step STARTS; [-1] is the deepest
         # measured time (ns-1)*eps
-        return {"flowQ": comp.topo_charge_clover(res.x, lat, nb),
-                "flow_plaq": obs["plaq"][-1], "flow_t2E": obs["t2E"][-1]}
+        return self._gather_metrics(
+            {"flowQ": comp.topo_charge_clover(res.x, lat, nb),
+             "flow_plaq": obs["plaq"][-1], "flow_t2E": obs["t2E"][-1]})
 
     # ------------------------------------------------------------------
     # Warmup (trainer.py:1699-1744)
@@ -464,7 +611,7 @@ class Trainer:
                         stuck_counter += 1
                         if stuck_counter >= patience:
                             log.warning("chains stuck; redrawing x")
-                            x = self.dynamics.random_x(generator)
+                            x = self.random_x(generator)
                             stuck_counter = 0
                     else:
                         stuck_counter = 0
@@ -511,12 +658,18 @@ class Trainer:
             raise ValueError(f"job_type must be eval or hmc, got {job_type}")
         steps = nsteps if nsteps is not None else self.cfg.steps.test
         beta = beta if beta is not None else self.schedule.beta_final
-        nchains = nchains or self.cfg.nchains or max(
-            2, self.cfg.dynamics.nchains // 4)
-        if x is None:
-            x = self.dynamics.random_x(generator, nchains)
+        if self.sharded is not None:
+            # the 2-D mesh evaluates the configured chains, as in the JAX
+            # package: a subset would unbalance the 'data' axis
+            nchains = self.cfg.dynamics.nchains
         else:
-            x = x[:nchains]
+            nchains = nchains or self.cfg.nchains or max(
+                2, self.cfg.dynamics.nchains // 4)
+        if x is None:
+            x = self.random_x(generator, nchains)
+        elif self.sharded is None:
+            # the global first nchains chains, as one device takes them
+            x = self.shard(self.gather(x)[:nchains])
         eps = eps if eps is not None else self.cfg.dynamics.eps_hmc
         x = self.warmup(x, beta, generator, nsteps=20)
         history = self.histories[job_type]
@@ -542,7 +695,7 @@ class Trainer:
                 if float(torch.mean(metrics["acc"])) < 1e-5:
                     stuck_counter += 1
                     if stuck_counter >= patience:
-                        x = self.dynamics.random_x(generator, nchains)
+                        x = self.random_x(generator, nchains)
                         stuck_counter = 0
                 else:
                     stuck_counter = 0

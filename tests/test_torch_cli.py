@@ -102,14 +102,15 @@ def test_default_device_without_cuda_raises():
 
 def test_su3_not_ported():
     """Once group=SU3 raised; now the single-device SU(3) path builds, and
-    what is still not ported (lattice-sharded training) says so."""
+    a mesh (the lattice-sharded path, now ported) wants as many processes
+    as it has ranks: one process here says so."""
     from l2hmc_torch.experiment import build_experiment
     small = ["group=SU3", "dynamics.nchains=2",
              "dynamics.latvolume=[2, 2, 2, 2]", "dynamics.nleapfrog=1",
              "network.units=[4]"]
     ex = build_experiment(small, device="cpu")
     assert ex.trainer.dynamics.group == "SU3"
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="needs 4 processes"):
         build_experiment(small + ["mesh_shape=[2, 2]"], device="cpu")
 
 

@@ -14,7 +14,8 @@ from l2hmc_torch.utils import mh as tmh
 from l2hmc_tpu.configs import DynamicsConfig, NetworkConfig
 from l2hmc_tpu.models.dynamics import Dynamics
 from l2hmc_tpu.utils import mh as jmh
-from torch_parity import fb_draws, hmc_draws, port_dynamics, to_torch
+from torch_parity import (compiled_c1_force, eager,  # noqa: F401
+                          fb_draws, hmc_draws, port_dynamics, to_torch)
 
 torch.set_num_threads(1)
 
@@ -216,18 +217,17 @@ def test_u1_verbose_series_match(merged):
 
 
 @pytest.mark.parametrize("c1", [0.0, -0.331], ids=["wilson", "c1"])
-def test_su3_verbose_series_match(c1):
+def test_su3_verbose_series_match(eager, compiled_c1_force, c1):
     """The SU(3) series (energy from the carried traces, or from the full
     action where c1 != 0), the JAX side op by op; 1e-10."""
     from torch_parity import make_su3, su3_fields
-    with jax.disable_jit():
-        dyn, params, masks, tdyn = make_su3(nlf=1, c1=c1, verbose=True)
-        x, _ = su3_fields(seed=44)
-        key = jax.random.PRNGKey(45)
-        _, jm = dyn.apply_transition_fb(params, masks, x, 5.7, key)
-        with torch.no_grad():
-            _, tm = tdyn.apply_transition_fb(to_torch(x), 5.7,
-                                             **fb_draws(dyn, x, key))
+    dyn, params, masks, tdyn = make_su3(nlf=1, c1=c1, verbose=True)
+    x, _ = su3_fields(seed=44)
+    key = jax.random.PRNGKey(45)
+    _, jm = dyn.apply_transition_fb(params, masks, x, 5.7, key)
+    with torch.no_grad():
+        _, tm = tdyn.apply_transition_fb(to_torch(x), 5.7,
+                                         **fb_draws(dyn, x, key))
     assert set(tm["per_step"]) == {"energy", "logdet", "logprob"}
     for k, t in tm["per_step"].items():
         assert tuple(t.shape) == (2, 2)

@@ -13,8 +13,8 @@ import torch
 from l2hmc_torch.models.dynamics import State as TState
 from l2hmc_torch.ops import su3 as tg
 from l2hmc_tpu.models.dynamics import State as JState
-from torch_parity import (eager, fb_draws, hmc_draws, make_su3,  # noqa: F401
-                          su3_fields, to_torch)
+from torch_parity import (compiled_c1_force, eager, fb_draws,  # noqa: F401
+                          hmc_draws, make_su3, su3_fields, to_torch)
 
 torch.set_num_threads(1)
 
@@ -28,7 +28,7 @@ def _close(t, j, atol=TOL):
 
 @pytest.mark.parametrize("nlf,c1", [(2, 0.0), (1, -0.331)],
                          ids=["wilson_nlf2", "c1"])
-def test_apply_transition_fb_matches(eager, nlf, c1):
+def test_apply_transition_fb_matches(eager, compiled_c1_force, nlf, c1):
     dyn, params, masks, tdyn = make_su3(nlf=nlf, c1=c1)
     assert tdyn.xnets_first is None and tdyn.masks.shape == (nlf, 4 * 16)
     x, _ = su3_fields(seed=11)

@@ -27,25 +27,43 @@ LOSS_CONFIGS = {
 }
 
 
+@pytest.fixture(scope="module")
+def trajectory():
+    """The JAX side of one differentiated SU(3) `apply_transition_fb`,
+    linearised once and shared by the loss cases: (dyn, port dynamics, x,
+    the draws, init x, proposed x, acc, the pullback to the parameters).
+    The slow part, the trajectory op by op, runs once per module."""
+    with jax.disable_jit():
+        dyn, params, masks, tdyn = make_su3(nlf=1)
+        x, _ = su3_fields(seed=4)
+        key = jax.random.PRNGKey(5)
+
+        def run(p):
+            _, m = dyn.apply_transition_fb(p, masks, x, 5.7, key,
+                                           training=True)
+            mc = m["mc_states"]
+            return mc.init.x, mc.proposed.x, m["acc"]
+
+        out, pullback = jax.vjp(run, params)
+        draws = fb_draws(dyn, x, key, training=True)
+    return dyn, tdyn, x, draws, out, pullback
+
+
 @pytest.mark.parametrize("name", list(LOSS_CONFIGS))
-def test_su3_loss_grad_through_trajectory(eager, name):
-    lcfg = LossConfig(**LOSS_CONFIGS[name])
-    dyn, params, masks, tdyn = make_su3(nlf=1)
-    x, _ = su3_fields(seed=4)
-    key = jax.random.PRNGKey(5)
+def test_su3_loss_grad_through_trajectory(eager, trajectory, name):
+    dyn, tdyn, x, draws, out, pullback = trajectory
     beta = 5.7
-    jloss_fn = JLoss(dyn.lattice, lcfg)
+    jloss_fn = JLoss(dyn.lattice, LossConfig(**LOSS_CONFIGS[name]))
+    # jax.grad of the loss through the trajectory, by the chain rule: the
+    # loss's cotangents on the trajectory's outputs, pulled back
+    jloss, cts = jax.value_and_grad(jloss_fn.calc_loss, argnums=(0, 1, 2))(
+        *out)
+    (jgrads,) = pullback(cts)
 
-    def loss_of(p):
-        _, m = dyn.apply_transition_fb(p, masks, x, beta, key, training=True)
-        mc = m["mc_states"]
-        return jloss_fn.calc_loss(mc.init.x, mc.proposed.x, m["acc"])
-
-    jloss, jgrads = jax.value_and_grad(loss_of)(params)
-
+    tdyn.zero_grad(set_to_none=True)
     tloss_fn = TLoss(tdyn.lattice, TLossConfig(**LOSS_CONFIGS[name]))
     _, tm = tdyn.apply_transition_fb(to_torch(x), beta, training=True,
-                                     **fb_draws(dyn, x, key, training=True))
+                                     **draws)
     mc = tm["mc_states"]
     tloss = tloss_fn.calc_loss(mc.init.x, mc.proposed.x, tm["acc"])
     tloss.backward()
@@ -63,8 +81,8 @@ def test_su3_loss_grad_through_trajectory(eager, name):
     assert biggest > 1e-6
 
 
-def test_su3_loss_terms_and_metrics_match(eager):
-    dyn, _, _, tdyn = make_su3(nlf=1)
+def test_su3_loss_terms_and_metrics_match(eager, trajectory):
+    dyn, tdyn = trajectory[:2]
     x1, _ = su3_fields(seed=6)
     x2, _ = su3_fields(seed=7)
     acc = np.array([0.3, 0.9])

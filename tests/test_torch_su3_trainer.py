@@ -3,8 +3,12 @@ from the same state and draws (2^4, 2 chains, complex128, the JAX side op
 by op): loss and grad_norm to rtol 1e-9, params and Adam moments to 1e-8
 (Adam's first update is ~lr * sign(g), so the params inherit the
 gradients' agreement scaled by lr / (|g| + eps)); the regression gate
-grad_norm > 0 with no non-finite entry; and the flowed eval observables
-(tests/test_flow_eval.py)."""
+grad_norm > 0 with no non-finite entry; the same JAX step against the
+port's Trainer on a (2, 2) mesh of four gloo processes (the lattice split
+in t, the chains over 'data'), at the same tolerances; and the flowed
+eval observables (tests/test_flow_eval.py)."""
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ from l2hmc_torch.configs import get_config as tget_config
 from l2hmc_torch.train.trainer import Trainer as TTrainer
 from l2hmc_tpu.configs import get_config
 from l2hmc_tpu.train.trainer import Trainer
+from torch_dist_workers import spawn
 from torch_parity import (eager, fb_draws, grad_pairs,  # noqa: F401
                           params_to_numpy, to_torch)
 
@@ -33,29 +38,52 @@ def _adam_state(opt_state):
     return adam
 
 
-def test_su3_train_step_matches(eager):
+@pytest.fixture(scope="module")
+def jax_step():
+    """The JAX Trainer's first train step, its initial weights and the
+    draws it makes, once for the module."""
     jtr = Trainer(get_config(BASE, group="SU3"))
-    ts, x = jtr.init_state(jax.random.PRNGKey(0))
-    ttr = TTrainer(tget_config(BASE, group="SU3"), device="cpu")
-    assert ttr.dtype == torch.complex128
-    ttr.dynamics.load_jax_params(params_to_numpy(ts.params),
-                                 np.asarray(ts.masks))
+    # the initial state is an input here: jitted, it is ready in a few
+    # seconds, and the step under test runs op by op
+    ts0, x = jtr.init_state(jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(10)
     k_main = jax.random.split(key, 3)[0]
     draws = fb_draws(jtr.dynamics, x, k_main, training=True)
-    ts, jx, jm = jtr.train_step(ts, x, 6.0, key)
-    tx, tm = ttr.train_step(to_torch(x), 6.0, draws=draws)
+    with jax.disable_jit():
+        ts, jx, jm = jtr.train_step(ts0, x, 6.0, key)
+    return SimpleNamespace(params=params_to_numpy(ts0.params),
+                           masks=np.asarray(ts0.masks), x=x, draws=draws,
+                           ts=ts, jx=jx, jm=jm)
+
+
+def _port_trainer(js):
+    ttr = TTrainer(tget_config(BASE, group="SU3"), device="cpu")
+    assert ttr.dtype == torch.complex128
+    ttr.dynamics.load_jax_params(js.params, js.masks)
+    return ttr
+
+
+def _step_matches(tx, tm, js, keys=("plaqs", "intQ", "sinQ", "dQint",
+                                    "checkSU_mean", "checkSU_max", "acc")):
+    jm = js.jm
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-9)
     np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
                                rtol=1e-9)
     assert float(tm["grad_norm"]) > 0
     assert int(tm["grad_nonfinite"]) == int(jm["grad_nonfinite"]) == 0
-    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-9, rtol=0)
-    for k in ("plaqs", "intQ", "sinQ", "dQint", "checkSU_mean",
-              "checkSU_max", "acc"):
+    np.testing.assert_allclose(tx.numpy(), np.asarray(js.jx), atol=1e-9,
+                               rtol=0)
+    for k in keys:
         np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
                                    atol=1e-9, rtol=0, err_msg=k)
+
+
+def test_su3_train_step_matches(jax_step):
+    ttr = _port_trainer(jax_step)
+    ts = jax_step.ts
+    tx, tm = ttr.train_step(to_torch(jax_step.x), 6.0, draws=jax_step.draws)
+    _step_matches(tx, tm, jax_step)
     adam = _adam_state(ts.opt_state)
     n = 0
     moments = {"exp_avg": dict((a, c) for a, _, c in
@@ -69,6 +97,29 @@ def test_su3_train_step_matches(eager):
             np.testing.assert_allclose(
                 ttr.optimizer.state[t][mk].numpy(), table[name], atol=1e-8,
                 rtol=0, err_msg=f"{name} {mk}")
+        n += 1
+    assert n == len(list(ttr.dynamics.parameters()))
+
+
+def test_su3_sharded_train_step_matches(jax_step, tmp_path):
+    """The port's Trainer on a (2, 2) mesh (ShardedTrainerSU3: one t row
+    and one chain a rank) from the JAX step's weights and draws: loss,
+    grad_norm, x, the per-chain metrics and the updated parameters as the
+    single-device port is held above."""
+    ttr = _port_trainer(jax_step)
+    torch.save({"overrides": BASE, "state": ttr.dynamics.state_dict(),
+                "x": to_torch(jax_step.x), "draws": jax_step.draws,
+                "beta": 6.0}, tmp_path / "inputs.pt")
+    spawn(str(tmp_path), 4, "sharded_train_step",
+          inputs=str(tmp_path / "inputs.pt"), out=str(tmp_path / "out.pt"),
+          mesh_shape=(2, 2))
+    got = torch.load(tmp_path / "out.pt")
+    _step_matches(got["x"], got["metrics"], jax_step)
+    ttr.dynamics.load_state_dict(got["state"])
+    n = 0
+    for name, t, j in grad_pairs(ttr.dynamics, jax_step.ts.params, None):
+        np.testing.assert_allclose(t.detach().numpy(), j, atol=1e-8, rtol=0,
+                                   err_msg=name)
         n += 1
     assert n == len(list(ttr.dynamics.parameters()))
 
@@ -124,6 +175,8 @@ def test_su3_warmup_stops_on_stationarity_and_mesh_raises():
     calls.clear()
     tr.warmup(x, 6.0, torch.Generator().manual_seed(2), nsteps=12, exact=True)
     assert len(calls) == 12
-    with pytest.raises(NotImplementedError, match="18-19"):
-        TTrainer(tget_config(FLOW + ["mesh_shape=[2, 2]"], group="SU3"),
-                 device="cpu")
+    # a mesh wants as many processes as it has ranks: one process here
+    from l2hmc_torch.experiment import Experiment
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        Experiment(tget_config(FLOW + ["mesh_shape=[2, 2]"], group="SU3"),
+                   device="cpu")

@@ -97,6 +97,33 @@ def eager():
         yield
 
 
+#: the compiled c1 != 0 force, per (lattice, batch, c1), for the process
+_C1_FORCE: dict = {}
+
+
+@pytest.fixture
+def compiled_c1_force(monkeypatch):
+    """The JAX package's c1 != 0 force is jax.grad of the improved action:
+    op by op a call takes 8-14 s, compiled ~15 s once. A test whose
+    trajectories evaluate it several times takes it compiled, one
+    executable per (lattice, batch, c1) for the process; every other op
+    of the JAX side stays op by op."""
+    from l2hmc_tpu.ops import su3_comp as jc
+    real = jc.grad_action
+
+    def grad_action(x, beta, lat, nb, roll=None, c1=0.0):
+        if c1 == 0.0 or roll is not None:
+            return real(x, beta, lat, nb, roll, c1=c1)
+        key = (tuple(lat), int(nb), float(c1))
+        with jax.disable_jit(False):
+            if key not in _C1_FORCE:
+                _C1_FORCE[key] = jax.jit(
+                    lambda y, b: real(y, b, key[0], key[1], c1=key[2]))
+            return _C1_FORCE[key](x, jnp.asarray(beta, jnp.float64))
+
+    monkeypatch.setattr(jc, "grad_action", grad_action)
+
+
 def su3_fields(nb=2, lat=LAT, seed=0):
     """(x, v) of the JAX package at complex128: Haar links, TAH momenta."""
     from l2hmc_tpu.ops import su3 as jg
@@ -128,7 +155,10 @@ def make_su3(nlf=1, lat=LAT, nchains=2, units=(4,), eps=0.05, c1=0.0,
     netcfg = NetworkConfig(units=list(units), activation_fn="tanh",
                            dropout_prob=0.0, use_batch_norm=False)
     dyn = Dynamics(cfg, netcfg, dtype=jnp.complex128, c1=c1)
-    params, masks = dyn.init_params(jax.random.PRNGKey(seed))
+    # the initial weights are an input of every comparison: jitted, they
+    # are ready in a second, where op by op they take several
+    with jax.disable_jit(False):
+        params, masks = jax.jit(dyn.init_params)(jax.random.PRNGKey(seed))
     spread = jnp.linspace(0.0, 0.3, nlf)
     params = params._replace(xeps=params.xeps + spread,
                              veps=params.veps - spread)
