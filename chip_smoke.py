@@ -62,6 +62,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      train, 1 eval and 1 HMC step, its first train step against the
      Trainer's (loss and grad_norm rtol 1e-5, parameters and x atol
      1e-5).
+ 10. the record drivers (l2hmc_torch/records/), full width, cut in depth:
+     `run_u1_flagship.main` (2048 x 16x16, 512 eval chains) for 10 train
+     steps and 10 draws under each HMC protocol, its summary's key tree
+     equal to the JAX record's (records/u1_16x16_quality_summary.json)
+     plus the literal protocol, `se`, `device` and `commit`, every value
+     finite and 0 < acc <= 1; then the 64x64 bf16 record's configuration
+     (`quality.U1_64X64_BF16`) for 3 train, 3 eval and 3 HMC steps, its
+     network GEMMs in bfloat16, grad_norm finite and > 0 and no
+     non-finite gradient entry on every step; the force kernels must be
+     launched in each.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound;
 the last is {"ok": true, "device": {...}}.
@@ -343,6 +353,103 @@ def su3_algebra_phase(torch) -> None:
     emit({"phase": "su3_algebra", "dtype": "complex128", "batch": 4096,
           "max_abs_err_card_vs_cpu": err})
     assert all(e <= 1e-10 for e in err.values()), err
+
+
+def records_phase(torch, uk) -> None:
+    """The record drivers at full width, cut in depth: the U(1) flagship
+    (2048 x 16x16 train, 512 eval chains) for 10 train steps and 10 draws
+    per protocol, its summary's key tree against the JAX record's; then
+    the 64x64 bf16 record for 3 train, 3 eval and 3 HMC steps, whose
+    networks must run their GEMMs in bfloat16 with every gradient finite.
+    The force kernels' launch counters are set to 0 before each and read
+    after it."""
+    from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.models import networks
+    from l2hmc_torch.records import quality as q
+    from l2hmc_torch.records import run_u1_flagship as fl
+    with open(os.path.join(ROOT, "records",
+                           "u1_16x16_quality_summary.json")) as f:
+        want = q.key_tree(json.load(f))
+    want["hmc_reference_literal"] = want["hmc_reference_protocol"]
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        uk.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = fl.main(out, extra=["steps.nepoch=10", "steps.test=10"],
+                    device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = uk.launch_counts()
+    got = q.key_tree(s)
+    for k in ("se", "device", "commit"):
+        assert k in got, k
+        del got[k]
+    assert got == want, (got, want)
+    for k in ("eval_stats", "train", "eval"):
+        assert finite(s[k]), (k, s[k])
+    for k in ("hmc_reference_protocol", "hmc_tuned_baseline",
+              "hmc_reference_literal"):
+        assert finite(s[k]["improvement"]) and finite(s[k]["hmc_stats"]), \
+            s[k]
+        assert 0.0 < s[k]["hmc_stats"]["acc"] <= 1.0, s[k]
+    assert 0.0 < s["eval_stats"]["acc"] <= 1.0, s["eval_stats"]
+    assert s["config"]["nchains_train"] == 2048, s["config"]
+    assert s["config"]["nchains_eval"] == 512, s["config"]
+    assert launches["u1_force_fwd"] > 0 and launches["u1_force_bwd"] > 0, \
+        launches
+    emit({"phase": "records_u1_flagship", "seconds": seconds,
+          "launches": launches, "eval_stats": s["eval_stats"],
+          "improvement": {k: s[k]["improvement"] for k in
+                          ("hmc_reference_protocol", "hmc_tuned_baseline",
+                           "hmc_reference_literal")},
+          "se": s["se"]})
+
+    gemm_dtypes = set()
+    functional = networks.F
+
+    class RecordingF:
+        """torch.nn.functional as the networks see it, noting the dtype of
+        each GEMM's operands."""
+
+        def __getattr__(self, name):
+            return getattr(functional, name)
+
+        def linear(self, z, w, b=None):
+            gemm_dtypes.add((str(z.dtype), str(w.dtype)))
+            return functional.linear(z, w, b)
+
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        ex = build_experiment([*q.U1_64X64_BF16, "steps.nepoch=3",
+                               "steps.test=3", f"outdir={out}"],
+                              device="cuda")
+        assert ex.cfg.precision == "bfloat16", ex.cfg.precision
+        networks.F = RecordingF()
+        try:
+            uk.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = ex.run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = uk.launch_counts()
+        finally:
+            networks.F = functional
+    hist = ex.trainer.histories["train"].get_dataset()
+    lat = list(ex.cfg.dynamics.latvolume)
+    assert lat == [64, 64] and ex._x.shape[-1] == 2 * 64 * 64, ex._x.shape
+    assert gemm_dtypes == {("torch.bfloat16", "torch.bfloat16")}, \
+        gemm_dtypes
+    assert ex._x.dtype == torch.float32, ex._x.dtype
+    norms = hist["grad_norm"].ravel()
+    assert norms.size == 3 and all(math.isfinite(v) and v > 0
+                                   for v in norms), norms
+    assert int((hist["grad_nonfinite"] != 0).sum()) == 0
+    assert finite(summary), summary
+    for job in ("eval_stats", "hmc_stats"):
+        assert 0.0 < summary[job]["acc"] <= 1.0, summary[job]
+    assert launches["u1_force_fwd"] > 0 and launches["u1_force_bwd"] > 0, \
+        launches
+    emit({"phase": "records_u1_64x64_bf16", "seconds": seconds,
+          "launches": launches, "gemm_dtypes": sorted(gemm_dtypes),
+          "grad_norm": [float(v) for v in norms], "summary": summary})
 
 
 def _free_port() -> int:
@@ -714,6 +821,7 @@ def main() -> int:
     su3_phases(torch, card, u1_ncp)
     su3_algebra_phase(torch)
     parallel_phases(torch, uk)
+    records_phase(torch, uk)
 
     # -- the kernels line -----------------------------------------------------
     # `ms` is the CUDA-event time of back-to-back wrapper calls (host

@@ -1,0 +1,278 @@
+"""Quality records of the port: the two companion records of the U(1)
+flagship, and what every record driver shares.
+
+    python -m l2hmc_torch.records.quality {u1_64x64_bf16|su3_4x4_b6} \
+        [outdir] [device=cpu] [key=value ...] [--commit SHA]
+
+runs `build_experiment(RECORDS[name]).run()` (train -> eval -> HMC ->
+improvement) and writes `<outdir>/summary.json` with the keys of the JAX
+package's record summaries plus:
+  se      the standard error of acc, dQint and dQsin across chains for
+          each `*_stats` entry (std of the per-chain means / sqrt(nchains)),
+          and of the improvement (delta method over the two chain sets);
+  device  the card's name and power limit (nvidia-smi), or "cpu";
+  commit  the source's git commit (`--commit`, else `git rev-parse HEAD`).
+Beside it, `<outdir>/train_health.json` counts the train steps with a
+non-finite gradient entry and gives the range of grad_norm over every
+step, logged or not.
+
+Extra `key=value` arguments follow the record's overrides, so the last
+one wins: `device=cpu steps.nepoch=3 ...` gives a tiny run on the CPU.
+
+`compare(port_summary, ref_summary)` puts a port summary beside a record:
+for each quality statistic the reference value, the port value, their
+difference, and the difference over sqrt(2)*SE_port. It reads only the
+`*_stats` entries and the improvements; the timer sections of a record are
+not the port's and are never copied.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import subprocess
+import sys
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+#: records/u1_64x64_bf16_quality.md, its command token for token
+U1_64X64_BF16 = [
+    "group=U1", "precision=bf16",
+    "dynamics.nchains=2048", "dynamics.latvolume=[64,64]",
+    "dynamics.nleapfrog=4", "dynamics.eps=0.025", "dynamics.eps_hmc=0.025",
+    "steps.nera=1", "steps.nepoch=2000", "steps.test=1000", "nchains=512",
+    "annealing_schedule.beta_init=4.0", "annealing_schedule.beta_final=4.0",
+]
+
+#: records/su3_4x4_b6_quality.md, its command token for token
+SU3_4X4_B6 = [
+    "group=SU3", "precision=float32",
+    "dynamics.latvolume=[4,4,4,4]", "dynamics.nchains=8",
+    "dynamics.nleapfrog=4", "dynamics.eps=0.05", "dynamics.eps_hmc=0.05",
+    "network.units=[32,32]", "network.use_batch_norm=false",
+    "network.dropout_prob=0.0", "network.zero_init_heads=true",
+    "loss.use_mixed_loss=true", "learning_rate.lr_init=1e-4",
+    "learning_rate.clip_norm=1.0", "steps.nera=4", "steps.nepoch=150",
+    "steps.test=150", "annealing_schedule.beta_init=6.0",
+    "annealing_schedule.beta_final=6.0",
+]
+
+RECORDS = {"u1_64x64_bf16": U1_64X64_BF16, "su3_4x4_b6": SU3_4X4_B6}
+
+#: per-chain series whose standard error a summary carries
+SE_KEYS = ("acc", "dQint", "dQsin")
+
+
+def chain_se(history) -> dict:
+    """Standard error of each of SE_KEYS across chains: the std of the
+    per-chain means over sqrt(nchains). Draws within a chain are
+    correlated; the chains are independent, so their means are too."""
+    h = history.get_dataset()
+    out = {}
+    for k in SE_KEYS:
+        if k not in h:
+            continue
+        q = np.atleast_2d(np.asarray(h[k], dtype=np.float64))
+        means = q.reshape(q.shape[0], -1).mean(axis=1)
+        n = means.shape[0]
+        out[k] = (float(np.std(means, ddof=1) / math.sqrt(n)) if n > 1
+                  else float("nan"))
+    return out
+
+
+def improvement_se(improvement: float, eval_stats: dict, eval_se: dict,
+                   hmc_stats: dict, hmc_se: dict) -> float:
+    """SE of mean(dQint_eval) / mean(dQint_hmc) by the delta method; the
+    two means come from independent chain sets."""
+    re = eval_se.get("dQint", float("nan")) / max(eval_stats["dQint"], 1e-16)
+    rh = hmc_se.get("dQint", float("nan")) / max(hmc_stats["dQint"], 1e-16)
+    return float(abs(improvement) * math.sqrt(re * re + rh * rh))
+
+
+def device_line(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or cpu."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    from l2hmc_torch.utils.kernel_times import card_line
+    return card_line()
+
+
+def commit_id(given: Optional[str] = None) -> str:
+    """The source's commit: as given, else git's HEAD in the checkout
+    (with "-dirty" for uncommitted changes), else "unknown"."""
+    if given:
+        return given
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    try:
+        head = subprocess.run(["git", "rev-parse", "HEAD"], cwd=root,
+                              capture_output=True, text=True, check=True,
+                              timeout=30).stdout.strip()
+        dirty = subprocess.run(["git", "status", "--porcelain",
+                                "--untracked-files=no"], cwd=root,
+                               capture_output=True, text=True, check=True,
+                               timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+    return head + ("-dirty" if dirty else "")
+
+
+def split_args(argv: Sequence[str]) -> tuple[list, list, dict]:
+    """Positional arguments, `key=value` overrides and `--flag value`
+    options (device=... among the overrides is taken out as an option)."""
+    pos, ovs, opts = [], [], {}
+    it = iter(argv)
+    for a in it:
+        if a.startswith("--"):
+            k, _, v = a[2:].partition("=")
+            opts[k] = v if v else next(it)
+        elif a.startswith("device="):
+            opts["device"] = a.split("=", 1)[1]
+        elif "=" in a:
+            ovs.append(a)
+        else:
+            pos.append(a)
+    return pos, ovs, opts
+
+
+def write_json(path: str, obj: dict) -> None:
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1, default=float)
+
+
+def key_tree(d):
+    """The nested keys of a summary, leaves as None."""
+    if isinstance(d, dict):
+        return {k: key_tree(v) for k, v in d.items()}
+    return None
+
+
+def _walk(ref, port, se, path, out):
+    for k, rv in ref.items():
+        if k not in port:
+            continue
+        pv, sv = port[k], (se or {}).get(k) if isinstance(se, dict) else None
+        p = f"{path}.{k}" if path else k
+        if isinstance(rv, dict):
+            if k.endswith("_stats") or k.startswith("hmc_"):
+                _walk(rv, pv, sv, p, out)
+        elif k == "improvement" or path.endswith("_stats"):
+            if not isinstance(rv, (int, float)) or isinstance(rv, bool):
+                continue
+            s = sv if isinstance(sv, (int, float)) else None
+            diff = float(pv) - float(rv)
+            out[p] = {"ref": float(rv), "port": float(pv), "diff": diff,
+                      "se_port": s,
+                      "z": (diff / (math.sqrt(2.0) * s)
+                            if s and s > 0 and math.isfinite(s) else None)}
+
+
+def compare(port_summary: dict, ref_summary: dict) -> dict:
+    """{path: {ref, port, diff, se_port, z}} for every quality statistic
+    both summaries hold: the `*_stats` entries and the improvements, at
+    the top level or under an HMC protocol (`hmc_reference_protocol`,
+    ...). z = diff / (sqrt(2) * SE_port), None where the port's summary
+    gives no SE for that statistic."""
+    out: dict = {}
+    _walk(ref_summary, port_summary, port_summary.get("se", {}), "", out)
+    return out
+
+
+def add_se(ex, summary: dict) -> dict:
+    """The `se` entry of an Experiment.run() summary."""
+    tr = ex.trainer
+    se = {"eval_stats": chain_se(tr.histories["eval"]),
+          "hmc_stats": chain_se(tr.histories["hmc"])}
+    se["improvement"] = improvement_se(
+        summary["improvement"], summary["eval_stats"], se["eval_stats"],
+        summary["hmc_stats"], se["hmc_stats"])
+    return se
+
+
+def record_train_health(trainer) -> list:
+    """Keep every train step's (grad_nonfinite, grad_norm) on the device,
+    logged or not (the history holds every `steps.log`-th step only), with
+    no host sync; `train_health` reads them afterwards."""
+    kept: list = []
+    plain_step = trainer.train_step
+
+    def train_step(*args, **kw):
+        xout, m = plain_step(*args, **kw)
+        kept.append(torch.stack([m["grad_nonfinite"].float(),
+                                 m["grad_norm"].float()]))
+        return xout, m
+
+    trainer.train_step = train_step
+    return kept
+
+
+def train_health(kept: list) -> dict:
+    """Train steps with a non-finite gradient entry, and the range of
+    grad_norm, over every step `record_train_health` kept."""
+    a = (torch.stack(kept).cpu().double().numpy() if kept
+         else np.zeros((0, 2)))
+    nonfinite, norm = a[:, 0], a[:, 1]
+    return {"train_steps": int(norm.size),
+            "steps_grad_nonfinite": int(np.count_nonzero(nonfinite)),
+            "grad_norm_finite_positive": bool(np.all(np.isfinite(norm))
+                                              and np.all(norm > 0)),
+            "grad_norm_min": float(norm.min()) if norm.size else None,
+            "grad_norm_max": float(norm.max()) if norm.size else None}
+
+
+def default_outdir(name: str) -> str:
+    return os.path.join("outputs", f"record_{name}")
+
+
+def run(name: str, outdir: Optional[str] = None,
+        extra: Sequence[str] = (), device=None,
+        commit: Optional[str] = None) -> dict:
+    """One companion record at its protocol (plus `extra` overrides);
+    writes and returns `<outdir>/summary.json`."""
+    from l2hmc_torch.experiment import build_experiment
+    outdir = outdir or default_outdir(name)
+    overrides = [*RECORDS[name], *extra, f"outdir={outdir}"]
+    ex = build_experiment(overrides, device=device)
+    kept = record_train_health(ex.trainer)
+    summary = ex.run()
+    summary["se"] = add_se(ex, summary)
+    summary["device"] = device_line(ex.device)
+    summary["commit"] = commit_id(commit)
+    write_json(os.path.join(outdir, "summary.json"), summary)
+    write_json(os.path.join(outdir, "train_health.json"),
+               train_health(kept))
+    return summary
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format="[%(asctime)s][%(name)s] %(message)s")
+    pos, ovs, opts = split_args(sys.argv[1:] if argv is None else argv)
+    if not pos or pos[0] not in RECORDS:
+        raise SystemExit(f"usage: python -m l2hmc_torch.records.quality "
+                         f"{{{'|'.join(RECORDS)}}} [outdir] [key=value ...]")
+    name = pos[0]
+    outdir = pos[1] if len(pos) > 1 else default_outdir(name)
+    s = run(name, outdir, ovs, device=opts.get("device"),
+            commit=opts.get("commit"))
+    print(json.dumps({k: s[k] for k in ("improvement", "eval_stats",
+                                        "hmc_stats", "se", "device")},
+                     indent=1, default=float))
+    with open(os.path.join(outdir, "train_health.json")) as f:
+        print(f.read())
+    ref = opts.get("ref")
+    if ref:
+        with open(ref) as f:
+            print(json.dumps(compare(s, json.load(f)), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
