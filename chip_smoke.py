@@ -41,7 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps; the 8^4 configuration at full width (8 chains, nleapfrog 4,
      units [32, 32], float32, mixed loss on the 12-step Wilson-flowed
      clover charge, 12-step flowed eval observables, beta 5.2 -> 5.7) for
-     200 warmup trajectories, 5 train, 5 eval and 5 HMC steps; its step times, a profile of 2
+     200 warmup trajectories, 5 train, 5 eval and 5 HMC steps; the
+     flowed observables replayed from their CUDA graph against the eager
+     flow, bit for bit, both timed; its step times, a profile of 2
      train steps (kernels per step, busy share, top device and host ops,
      peak memory), the hot ops' times beside their bounds with their
      calls per train step (l2hmc_torch.utils.su3_times); and
@@ -70,8 +72,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      finite and 0 < acc <= 1; then the 64x64 bf16 record's configuration
      (`quality.U1_64X64_BF16`) for 3 train, 3 eval and 3 HMC steps, its
      network GEMMs in bfloat16, grad_norm finite and > 0 and no
-     non-finite gradient entry on every step; the force kernels must be
-     launched in each.
+     non-finite gradient entry on every step, its train_curve.json one
+     row per train step; the force kernels must be launched in each; then
+     the SU(3) 8^4 beta 5.7 record (`quality.SU3_8X8_B57`: cold start,
+     12-step flowed eval) for 20 warmup trajectories, 1 train step and 2
+     draws each of eval and HMC, its flowed-topology statistics finite;
+ 11. `Trainer.profile` for 2 train steps at the default U(1) width: the
+     Chrome trace it writes must hold both force kernels, 2 x 34 forward
+     and 2 x 17 backward launches, whose device times it prints.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound;
 the last is {"ok": true, "device": {...}}.
@@ -229,6 +237,23 @@ def su3_run(torch, overrides, phase, flow: bool):
     return ex
 
 
+def su3_flow_graph(torch, tr, x, card) -> None:
+    """The flowed eval observables as evaluate() takes them on the card
+    (a CUDA graph of the whole flow, replayed) against the eager flow on
+    the same draw: bit for bit equal; both timed."""
+    from l2hmc_torch.utils.kernel_times import cuda_ms
+    graph = tr._flow_replay(x)
+    eager = tr._flow_observables(x)
+    torch.cuda.synchronize()
+    equal = {k: torch.equal(graph[k], eager[k]) for k in eager}
+    ms = {"graph": cuda_ms(lambda: tr._flow_replay(x), 5, warmup=1),
+          "eager": cuda_ms(lambda: tr._flow_observables(x), 3, warmup=1)}
+    emit({"phase": "su3_flow_graph", "card": card, "nchains": x.shape[0],
+          "flow_steps": tr.cfg.flow_nsteps, "equal_to_eager": equal,
+          "ms": ms})
+    assert all(equal.values()), equal
+
+
 def su3_phases(torch, card, u1_ncp) -> None:
     from l2hmc_torch import train4dsu3
     from l2hmc_torch.utils import su3_times as st
@@ -248,6 +273,7 @@ def su3_phases(torch, card, u1_ncp) -> None:
     beta = float(cfg.annealing_schedule.beta_final)
     eps = cfg.dynamics.eps_hmc
     nchains = cfg.dynamics.nchains
+    su3_flow_graph(torch, tr, x, card)
 
     def eval_draw():        # a draw as evaluate() makes it: step, then flow
         xo, _ = tr.eval_step(x, beta, ex.generator)
@@ -360,10 +386,12 @@ def records_phase(torch, uk) -> None:
     (2048 x 16x16 train, 512 eval chains) for 10 train steps and 10 draws
     per protocol, its summary's key tree against the JAX record's; then
     the 64x64 bf16 record for 3 train, 3 eval and 3 HMC steps, whose
-    networks must run their GEMMs in bfloat16 with every gradient finite.
-    The force kernels' launch counters are set to 0 before each and read
-    after it."""
-    from l2hmc_torch.experiment import build_experiment
+    networks must run their GEMMs in bfloat16 with every gradient finite
+    and whose train_curve.json must hold one row per train step (the
+    force kernels' launch counters are set to 0 before each of the two
+    and read after it); then the SU(3) 8^4 beta 5.7 record for 20 warmup
+    trajectories, 1 train step and 2 flowed draws each of eval and HMC,
+    its flowed-topology statistics finite."""
     from l2hmc_torch.models import networks
     from l2hmc_torch.records import quality as q
     from l2hmc_torch.records import run_u1_flagship as fl
@@ -418,9 +446,8 @@ def records_phase(torch, uk) -> None:
             return functional.linear(z, w, b)
 
     with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
-        ex = build_experiment([*q.U1_64X64_BF16, "steps.nepoch=3",
-                               "steps.test=3", f"outdir={out}"],
-                              device="cuda")
+        ex, rec = q.start("u1_64x64_bf16", out,
+                          ["steps.nepoch=3", "steps.test=3"], device="cuda")
         assert ex.cfg.precision == "bfloat16", ex.cfg.precision
         networks.F = RecordingF()
         try:
@@ -432,6 +459,11 @@ def records_phase(torch, uk) -> None:
             launches = uk.launch_counts()
         finally:
             networks.F = functional
+        q.finish(ex, rec, dict(summary), out)
+        with open(os.path.join(out, "train_curve.json")) as f:
+            curve = json.load(f)
+    assert [r[0] for r in curve["rows"]] == [1, 2, 3], curve
+    assert finite(curve["rows"]), curve
     hist = ex.trainer.histories["train"].get_dataset()
     lat = list(ex.cfg.dynamics.latvolume)
     assert lat == [64, 64] and ex._x.shape[-1] == 2 * 64 * 64, ex._x.shape
@@ -449,7 +481,66 @@ def records_phase(torch, uk) -> None:
         launches
     emit({"phase": "records_u1_64x64_bf16", "seconds": seconds,
           "launches": launches, "gemm_dtypes": sorted(gemm_dtypes),
-          "grad_norm": [float(v) for v in norms], "summary": summary})
+          "grad_norm": [float(v) for v in norms],
+          "train_curve_last": q.last_row(curve), "summary": summary})
+
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        t0 = time.perf_counter()
+        s = q.run("su3_8x8_b57", out, ["steps.warmup=20", "steps.nepoch=1",
+                                       "steps.nera=1", "steps.test=2"],
+                  device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "train_curve.json")) as f:
+            curve = json.load(f)
+    flowed = {job: {k: v for k, v in s[job].items()
+                    if k.startswith("flowQ_") or k == "dQint_flow"}
+              for job in ("eval_stats", "hmc_stats")}
+    emit({"phase": "records_su3_8x8_b57", "seconds": seconds,
+          "lattice": [8, 8, 8, 8], "train_curve_last": q.last_row(curve),
+          "flowed": flowed, "improvement": s["improvement"]})
+    for job, stats in flowed.items():
+        assert {"flowQ_mean_abs", "dQint_flow", "flowQ_sector_Q2",
+                "flowQ_max_abs_sector"} <= set(stats), (job, stats)
+        assert finite(stats), (job, stats)
+    assert [r[0] for r in curve["rows"]] == [1] and finite(curve["rows"])
+
+
+def trainer_profile_phase(torch, card) -> None:
+    """`Trainer.profile` for 2 train steps at the default U(1) width on
+    the card: its Chrome trace must exist and hold both force kernels, as
+    often as two train steps launch them."""
+    from l2hmc_torch.configs import get_config
+    from l2hmc_torch.train.trainer import Trainer
+    tr = Trainer(get_config([]), device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    beta = float(tr.cfg.annealing_schedule.beta_init)
+    x, _ = tr.train_step(tr.random_x(gen), beta, gen)   # set-up untraced
+    nsteps, nlf = 2, tr.cfg.dynamics.nleapfrog
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        t0 = time.perf_counter()
+        tr.profile(x, beta, gen, nsteps=nsteps, outdir=out)
+        seconds = time.perf_counter() - t0
+        (path,) = glob.glob(os.path.join(out, "*.json"))
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    found = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k in ("u1_force_fwd", "u1_force_bwd"):
+            if f"{k}_kernel" in e.get("name", ""):
+                n, us = found.get(k, (0, 0.0))
+                found[k] = (n + 1, us + float(e.get("dur", 0.0)))
+    emit({"phase": "trainer_profile", "card": card, "steps": nsteps,
+          "seconds": seconds, "trace": path, "trace_bytes": size,
+          "kernels": {k: {"launches": n, "device_us_per_launch": us / n}
+                      for k, (n, us) in found.items()}})
+    # per train step 4 nlf + 2 forward and 2 nlf + 1 backward launches
+    assert {k: n for k, (n, _) in found.items()} == {
+        "u1_force_fwd": nsteps * (4 * nlf + 2),
+        "u1_force_bwd": nsteps * (2 * nlf + 1)}, found
 
 
 def _free_port() -> int:
@@ -822,6 +913,7 @@ def main() -> int:
     su3_algebra_phase(torch)
     parallel_phases(torch, uk)
     records_phase(torch, uk)
+    trainer_profile_phase(torch, card)
 
     # -- the kernels line -----------------------------------------------------
     # `ms` is the CUDA-event time of back-to-back wrapper calls (host

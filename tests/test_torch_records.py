@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECORDS = os.path.join(ROOT, "records")
 FLAGSHIP_RECORD = os.path.join(RECORDS, "u1_16x16_quality_summary.json")
+PORT_RECORDS = os.path.join(ROOT, "l2hmc_torch", "records", "h100")
 
 TINY_U1 = ["dynamics.nchains=16", "dynamics.latvolume=[8, 8]", "nchains=8",
            "steps.nepoch=3", "steps.test=8"]
@@ -107,7 +108,8 @@ def test_overrides_equal_jax_driver(driver, port):
 
 @pytest.mark.parametrize("name,md", [
     ("u1_64x64_bf16", "u1_64x64_bf16_quality.md"),
-    ("su3_4x4_b6", "su3_4x4_b6_quality.md")])
+    ("su3_4x4_b6", "su3_4x4_b6_quality.md"),
+    ("su3_8x8_b57", "su3_8x8_b57_quality.md")])
 def test_companion_overrides_equal_command(name, md):
     assert q.RECORDS[name] == _md_command(md)
     group = q.RECORDS[name][0].split("=")[1]
@@ -259,6 +261,79 @@ def test_companion_tiny_run(tmp_path, monkeypatch):
     assert health["grad_norm_finite_positive"]
     assert health["grad_norm_min"] == pytest.approx(
         float(train["grad_norm"].min()), rel=1e-6)
+    with open(out / "train_curve.json") as f:
+        rows = json.load(f)["rows"]
+    assert [r[0] for r in rows] == [1, 2]
+    assert all(math.isfinite(v) for r in rows for v in r)
+
+
+def test_su3_8x8_b57_summary_key_tree():
+    """The port's committed 8^4 beta 5.7 summary: the JAX record's key
+    tree (the flowed sector statistics included) plus se, device and
+    commit; values finite; the record's 600 train steps and 2000 draws;
+    its train health and curve cover every train step."""
+    with open(os.path.join(RECORDS, "su3_8x8_b57_quality_summary.json")) \
+            as f:
+        want = q.key_tree(json.load(f))
+    flowed = {k: None for k in (*q.SE_KEYS, "dQint_flow", "flowQ_sector_Q2")}
+    want["se"] = {"eval_stats": flowed, "hmc_stats": flowed,
+                  "improvement": None}
+    want["device"] = want["commit"] = None
+    with open(os.path.join(PORT_RECORDS,
+                           "su3_8x8_b57_quality_summary.json")) as f:
+        s = json.load(f)
+    assert q.key_tree(s) == want
+    assert all(math.isfinite(v) for v in _numbers(s))
+    assert s["device"].startswith("NVIDIA H100") and s["commit"]
+    assert s["train"]["nsteps"] == 600
+    assert s["eval"]["nsteps"] == s["hmc"]["nsteps"] == 2000
+    with open(os.path.join(PORT_RECORDS, "su3_8x8_b57_train_health.json")) \
+            as f:
+        health = json.load(f)
+    with open(os.path.join(PORT_RECORDS, "su3_8x8_b57_train_curve.json")) \
+            as f:
+        curve = json.load(f)
+    assert health["train_steps"] == len(curve["rows"]) == 600
+    assert [r[0] for r in curve["rows"]] == list(range(1, 601))
+
+
+def test_train_curve_one_row_per_step_across_a_restore(tmp_path,
+                                                       monkeypatch):
+    """train_curve.json of a tiny 8^4-record run split in two: era 0 with
+    save=true, then restore=true for era 1. One row per train step, counted
+    on from the first run's rows, every value finite, the logged steps
+    equal to the train history's."""
+    monkeypatch.setattr(Experiment, "make_plots", lambda self: None)
+    out = tmp_path / "b57"
+    tiny = ["dynamics.latvolume=[2, 2, 2, 2]", "network.units=[4]",
+            "steps.warmup=2", "steps.nepoch=3", "steps.test=4",
+            "flow_nsteps=2", "save=true"]
+    q.run("su3_8x8_b57", str(out), tiny + ["steps.nera=1"], device="cpu")
+    with open(out / "train_curve.json") as f:
+        first = json.load(f)
+    s = q.run("su3_8x8_b57", str(out), tiny + ["steps.nera=2",
+                                                "restore=true"],
+              device="cpu")
+    with open(out / "train_curve.json") as f:
+        curve = json.load(f)
+    with open(out / "train_health.json") as f:
+        health = json.load(f)
+    cols = curve["columns"]
+    assert cols == ["step", "beta", *q.CURVE_KEYS]
+    assert len(first["rows"]) == 3 and curve["rows"][:3] == first["rows"]
+    assert [r[0] for r in curve["rows"]] == [1, 2, 3, 4, 5, 6]
+    assert health["train_steps"] == 6 and s["train"]["nsteps"] == 6
+    assert all(math.isfinite(v) for r in curve["rows"] for v in r)
+    train = np.load(out / "train_history.npz")
+    last = q.last_row(curve)
+    assert last["step"] == 6
+    assert last["loss"] == pytest.approx(float(train["loss"][-1]), rel=1e-6)
+    assert last["acc"] == pytest.approx(float(train["acc"][..., -1].mean()),
+                                        rel=1e-6)
+    for job in ("eval_stats", "hmc_stats"):
+        assert {"flowQ_sector_Q2", "flowQ_max_abs_sector",
+                "dQint_flow"} <= set(s[job])
+        assert {"dQint_flow", "flowQ_sector_Q2"} <= set(s["se"][job])
 
 
 def test_flowloss_tiny_writes_only_outdir(tmp_path, monkeypatch):

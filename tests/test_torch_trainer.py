@@ -3,7 +3,12 @@ same state and the same draws (replayed from the key splits of
 `_train_step_impl`, trainer.py:219, then dynamics.py:885), at float64 on
 the CPU: params, Adam moments and BN running statistics to 1e-8 (Adam's
 first update is ~lr * sign(g), so the params inherit the gradients'
-~1e-12 agreement scaled by lr / (|g| + eps))."""
+~1e-12 agreement scaled by lr / (|g| + eps)). The `record_64x64_knobs`
+case takes the U(1) 64x64 record's dynamics (nleapfrog 4, eps 0.025,
+beta 4, BN and dropout on) at 8x8 for 10 steps in lockstep, where a drift
+of a few ulps a step compounded through Adam would show."""
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -24,13 +29,17 @@ BASE = [
     "precision=float64", "steps.nera=1", "steps.nepoch=2", "steps.test=2",
 ]
 
+#: name -> (overrides, train steps, beta)
 VARIANTS = {
-    "default": [],
-    "clip_warmup_epsfixed": ["learning_rate.clip_norm=0.5",
-                             "learning_rate.warmup=3",
-                             "dynamics.eps_fixed=true"],
-    "noam_accum": ["learning_rate.schedule=noam", "learning_rate.warmup=4",
-                   "grad_accum_steps=2"],
+    "default": ([], 2, 2.0),
+    "clip_warmup_epsfixed": (["learning_rate.clip_norm=0.5",
+                              "learning_rate.warmup=3",
+                              "dynamics.eps_fixed=true"], 2, 2.0),
+    "noam_accum": (["learning_rate.schedule=noam", "learning_rate.warmup=4",
+                    "grad_accum_steps=2"], 2, 2.0),
+    "record_64x64_knobs": (["dynamics.latvolume=[8, 8]",
+                            "dynamics.nleapfrog=4", "dynamics.eps=0.025",
+                            "steps.nepoch=10"], 10, 4.0),
 }
 
 
@@ -63,15 +72,15 @@ def _pairs(tdyn, tree):
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_train_steps_match(variant):
-    overrides = BASE + VARIANTS[variant]
+    extra, nsteps, beta = VARIANTS[variant]
+    overrides = BASE + extra
     jtr = Trainer(get_config(overrides))
     ts, x = jtr.init_state(jax.random.PRNGKey(0))
     ttr = TTrainer(tget_config(overrides), device="cpu")
     ttr.dynamics.load_jax_params(params_to_numpy(ts.params),
                                  np.asarray(ts.masks))
     tx = to_torch(x)
-    beta = 2.0
-    for step in range(2):
+    for step in range(nsteps):
         key = jax.random.PRNGKey(10 + step)
         k_main = jax.random.split(key, 3)[0]
         draws = fb_draws(jtr.dynamics, x, k_main, training=True)
@@ -98,4 +107,22 @@ def test_train_steps_match(variant):
                                            rtol=0, err_msg=f"{name} {tk}")
             n_adam += 1
     assert n_adam == len(list(ttr.dynamics.parameters()))
-    assert ttr.updates == (1 if variant == "noam_accum" else 2)
+    assert ttr.updates == nsteps // ttr.grad_accum_steps
+
+
+def test_profile_takes_unlogged_steps_and_writes_a_trace(tmp_path):
+    """Trainer.profile (JAX trainer.py:496-512): nsteps train steps under
+    torch.profiler, none logged, one Chrome trace under outdir, the
+    advanced x returned."""
+    ttr = TTrainer(tget_config(BASE), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    x = ttr.random_x(gen)
+    y = ttr.profile(x, 2.0, gen, nsteps=2, outdir=str(tmp_path / "prof"))
+    assert y.shape == x.shape and not torch.equal(y, x)
+    assert ttr.step == 2 and ttr.updates == 2
+    assert ttr.histories["train"].get_dataset() == {}
+    (trace,) = (tmp_path / "prof").iterdir()
+    assert trace.name == "trace_step2.json"
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
