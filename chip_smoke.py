@@ -76,7 +76,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      row per train step; the force kernels must be launched in each; then
      the SU(3) 8^4 beta 5.7 record (`quality.SU3_8X8_B57`: cold start,
      12-step flowed eval) for 20 warmup trajectories, 1 train step and 2
-     draws each of eval and HMC, its flowed-topology statistics finite;
+     draws each of eval and HMC, its flowed-topology statistics finite
+     and its train_curve.json carrying sumlogdet and the plaquette; then
+     the same record with lr 0 (`su3_8x8_b57_frozen`) at the same depth:
+     every parameter bit-equal after the train step, grad_norm finite and
+     above 0, sumlogdet 0 on every chain;
  11. `Trainer.profile` for 2 train steps at the default U(1) width: the
      Chrome trace it writes must hold both force kernels, 2 x 34 forward
      and 2 x 17 backward launches, whose device times it prints.
@@ -100,6 +104,10 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: the SU(3) 8^4 records' depth in the smoke: 20 warmup trajectories, one
+#: train step, 2 flowed draws each of eval and HMC
+SU3_RECORD_DEPTH = ["steps.warmup=20", "steps.nepoch=1", "steps.nera=1",
+                    "steps.test=2"]
 
 
 def emit(obj) -> None:
@@ -486,9 +494,7 @@ def records_phase(torch, uk) -> None:
 
     with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
         t0 = time.perf_counter()
-        s = q.run("su3_8x8_b57", out, ["steps.warmup=20", "steps.nepoch=1",
-                                       "steps.nera=1", "steps.test=2"],
-                  device="cuda")
+        s = q.run("su3_8x8_b57", out, SU3_RECORD_DEPTH, device="cuda")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         with open(os.path.join(out, "train_curve.json")) as f:
@@ -504,6 +510,45 @@ def records_phase(torch, uk) -> None:
                 "flowQ_max_abs_sector"} <= set(stats), (job, stats)
         assert finite(stats), (job, stats)
     assert [r[0] for r in curve["rows"]] == [1] and finite(curve["rows"])
+    assert {"sumlogdet", "plaqs"} <= set(curve["columns"]), curve["columns"]
+
+
+def records_su3_frozen_phase(torch) -> None:
+    """The 8^4 beta 5.7 record with lr 0 (`su3_8x8_b57_frozen`) at the
+    smoke depth of `records_su3_8x8_b57`: after its train step every
+    parameter is bit-equal to its value before, grad_norm is finite and
+    above 0 (the gradient is still computed), and sumlogdet is 0 on every
+    chain (the networks stay at their zero init)."""
+    from l2hmc_torch.records import quality as q
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        ex, rec = q.start("su3_8x8_b57_frozen", out, SU3_RECORD_DEPTH,
+                          device="cuda")
+        params = dict(ex.trainer.dynamics.named_parameters())
+        before = {n: p.detach().clone() for n, p in params.items()}
+        t0 = time.perf_counter()
+        s = q.finish(ex, rec, ex.run(), out)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "train_health.json")) as f:
+            health = json.load(f)
+        with open(os.path.join(out, "train_curve.json")) as f:
+            curve = json.load(f)
+    moved = sorted(n for n, p in params.items()
+                   if not torch.equal(p.detach(), before[n]))
+    sumlogdet = ex.trainer.histories["train"].get_dataset()["sumlogdet"]
+    emit({"phase": "records_su3_frozen", "seconds": seconds,
+          "lr": ex.trainer.optimizer.param_groups[0]["lr"],
+          "updates": ex.trainer.updates, "params": len(params),
+          "moved": moved, "health": health,
+          "train_curve_last": q.last_row(curve),
+          "improvement": s["improvement"]})
+    assert ex.cfg.learning_rate.lr_init == 0 and ex.trainer.updates == 1
+    assert not moved, moved
+    assert health["train_steps"] == 1, health
+    assert health["grad_norm_finite_positive"], health
+    assert health["steps_grad_nonfinite"] == 0, health
+    assert sumlogdet.size == 8 and (sumlogdet == 0).all(), sumlogdet
+    assert finite(curve["rows"]) and finite(s["eval_stats"]), s
 
 
 def trainer_profile_phase(torch, card) -> None:
@@ -913,6 +958,7 @@ def main() -> int:
     su3_algebra_phase(torch)
     parallel_phases(torch, uk)
     records_phase(torch, uk)
+    records_su3_frozen_phase(torch)
     trainer_profile_phase(torch, card)
 
     # -- the kernels line -----------------------------------------------------

@@ -166,16 +166,24 @@ def projectTAH(x: F3) -> F3:
 
 def expm(m: F3, order: int = 12, s: int = 2) -> F3:
     """Scaling-squaring Taylor (Horner): the reference's order-12 Taylor
-    (group/su3/pytorch/utils.py:148-154) plus 2^-s scaling."""
+    (group/su3/pytorch/utils.py:148-154) plus 2^-s scaling.
+
+    The recurrence and the squarings run on y = exp(m) - 1 and the 1 is
+    added once, at the end: x_i = 1 + m x_(i+1) / i is y_i = (m + m
+    y_(i+1)) / i, and (1 + y)^2 = 1 + (2 y + y^2). Rounding 1 + y at every
+    step, as the plain Horner form does, drops the low bits of the small
+    terms: in float32 at the records' step sizes that shrank the links
+    by ~2e-8 of tr(U^dag U)/3 a call, with one sign, so HMC drifted off
+    SU(3) and raised the action (an XLA-fused multiply-add rounds less)."""
     m = scale(m, 1.0 / (2 ** s))
-    eye = _eye3(m.re)
-    x = F3(eye + m.re / order, m.im / order)
+    y = F3(m.re / order, m.im / order)
     for i in range(order - 1, 0, -1):
-        p = mm(m, x)
-        x = F3(eye + p.re / i, p.im / i)
+        p = mm(m, y)
+        y = F3((m.re + p.re) / i, (m.im + p.im) / i)
     for _ in range(s):
-        x = mm(x, x)
-    return x
+        p = mm(y, y)
+        y = F3(2.0 * y.re + p.re, 2.0 * y.im + p.im)
+    return F3(_eye3(m.re) + y.re, y.im)
 
 
 def _cmul(ar, ai, br, bi):

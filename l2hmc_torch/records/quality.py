@@ -3,7 +3,8 @@ flagship, the SU(3) 8^4 beta 5.7 topology record, and what every record
 driver shares.
 
     python -m l2hmc_torch.records.quality \
-        {u1_64x64_bf16|su3_4x4_b6|su3_8x8_b57} \
+        {u1_64x64_bf16|su3_4x4_b6|su3_8x8_b57|su3_4x4_b6_frozen|
+         su3_8x8_b57_frozen} \
         [outdir] [device=cpu] [key=value ...] [--commit SHA] [--ref JSON]
 
 runs `build_experiment(RECORDS[name]).run()` (train -> eval -> HMC ->
@@ -20,8 +21,11 @@ package's record summaries (the flowed-charge sector statistics of the
 Beside it, `<outdir>/train_health.json` counts the train steps with a
 non-finite gradient entry and gives the range of grad_norm over every
 step, logged or not, and `<outdir>/train_curve.json` holds one row per
-train step: beta, the chain means of acc, dQint and loss, and the means
-of the step sizes xeps and veps.
+train step: beta, the chain means of acc, dQint, loss, sumlogdet and the
+plaquette, and the means of the step sizes xeps and veps.
+
+`su3_*_frozen` is its record with `learning_rate.lr_init=0`: the networks
+stay at their zero init, the gradient is still computed (`SU3_FROZEN`).
 
 A run with `save=true` keeps both beside each era's checkpoint, and one
 with `restore=true` picks them up from there, so a record split over
@@ -58,7 +62,9 @@ U1_64X64_BF16 = [
     "annealing_schedule.beta_init=4.0", "annealing_schedule.beta_final=4.0",
 ]
 
-#: records/su3_4x4_b6_quality.md, its command token for token
+#: records/su3_4x4_b6_quality.md, its command token for token. The JAX
+#: record was made by the package of commit 707bd41 (round 3), which
+#: predates 85d1431 (see `SU3_FROZEN`)
 SU3_4X4_B6 = [
     "group=SU3", "precision=float32",
     "dynamics.latvolume=[4,4,4,4]", "dynamics.nchains=8",
@@ -71,7 +77,9 @@ SU3_4X4_B6 = [
     "annealing_schedule.beta_final=6.0",
 ]
 
-#: records/su3_8x8_b57_quality.md, its command token for token
+#: records/su3_8x8_b57_quality.md, its command token for token. The JAX
+#: record was made by the package of commit 95dc1d5, which predates
+#: 85d1431 (see `SU3_FROZEN`)
 SU3_8X8_B57 = [
     "group=SU3", "precision=float32",
     "dynamics.latvolume=[8,8,8,8]", "dynamics.nchains=8", "nchains=8",
@@ -85,8 +93,22 @@ SU3_8X8_B57 = [
     "steps.warmup=1000", "flow_nsteps=12", "flow_eps=0.1", "save=false",
 ]
 
+#: Why the `*_frozen` records exist. Both JAX SU(3) records were made
+#: before commit 85d1431 ("Fix silent zero gradient in all SU(3)
+#: training"). Until then the x update re-projected each link with
+#: `projectSU`, whose eigendecomposition has a NaN backward at x^dag x = I;
+#: `nan_to_num` zeroed such a gradient with no count, and a zero gradient
+#: leaves Adam's moments and update at 0. 85d1431 put the Newton-Schulz
+#: `reunit` in its place and counted `grad_nonfinite`; the port follows it.
+#: A record run with lr 0 keeps the networks at their zero init, as a run
+#: whose every gradient was zeroed would have: it is that run's like-for-
+#: like counterpart.
+SU3_FROZEN = ["learning_rate.lr_init=0"]
+
 RECORDS = {"u1_64x64_bf16": U1_64X64_BF16, "su3_4x4_b6": SU3_4X4_B6,
-           "su3_8x8_b57": SU3_8X8_B57}
+           "su3_8x8_b57": SU3_8X8_B57,
+           "su3_4x4_b6_frozen": SU3_4X4_B6 + SU3_FROZEN,
+           "su3_8x8_b57_frozen": SU3_8X8_B57 + SU3_FROZEN}
 
 #: per-chain series whose standard error a summary carries
 SE_KEYS = ("acc", "dQint", "dQsin")
@@ -246,7 +268,8 @@ def add_se(ex, summary: dict) -> dict:
 
 #: the columns `TrainRecord` keeps per train step
 HEALTH_KEYS = ("grad_nonfinite", "grad_norm")
-CURVE_KEYS = ("acc", "dQint", "loss", "xeps", "veps")
+CURVE_KEYS = ("acc", "dQint", "loss", "xeps", "veps", "sumlogdet",
+              "plaqs")
 
 
 class TrainRecord:

@@ -117,6 +117,32 @@ def test_companion_overrides_equal_command(name, md):
             == jcfg.get_config(q.RECORDS[name], group=group).to_dict())
 
 
+@pytest.mark.parametrize("name", ["su3_4x4_b6", "su3_8x8_b57"])
+def test_frozen_command_is_its_record_with_lr_0(name):
+    """`*_frozen` is its record's command plus lr 0 and nothing else, in
+    both packages' configs; lr 0 stays 0 under either package's
+    ReduceLROnPlateau over the record's eras (one update an era, the
+    loss never improving), and no schedule of the port reads more."""
+    frozen = q.RECORDS[f"{name}_frozen"]
+    assert frozen == q.RECORDS[name] + ["learning_rate.lr_init=0"]
+    for cfgs in (tcfg, jcfg):
+        want = cfgs.get_config(q.RECORDS[name], group="SU3").to_dict()
+        got = cfgs.get_config(frozen, group="SU3").to_dict()
+        assert got["learning_rate"].pop("lr_init") == 0
+        assert want["learning_rate"].pop("lr_init") == 1e-4
+        assert got == want
+    from l2hmc_torch.train.annealing import ReduceLROnPlateau as TPlateau
+    from l2hmc_tpu.train.annealing import ReduceLROnPlateau as JPlateau
+    cfg = tcfg.get_config(frozen, group="SU3")
+    assert cfg.learning_rate.schedule == "default"
+    assert cfg.learning_rate.warmup == 0
+    for plateau in (TPlateau(cfg.learning_rate),
+                    JPlateau(jcfg.get_config(frozen,
+                                             group="SU3").learning_rate)):
+        assert [plateau.update(-1.0) for _ in range(cfg.steps.nera)] \
+            == [0.0] * cfg.steps.nera
+
+
 @pytest.fixture(scope="module")
 def flagship(tmp_path_factory):
     """One tiny flagship run on the CPU (8x8, 16 train chains, 8 eval
@@ -297,6 +323,73 @@ def test_su3_8x8_b57_summary_key_tree():
     assert [r[0] for r in curve["rows"]] == list(range(1, 601))
 
 
+def test_su3_8x8_b57_rerun_summary():
+    """The rerun of the 8^4 beta 5.7 record: the first run's key tree,
+    600 train steps with finite positive gradients, and a curve of one
+    row a step whose sumlogdet and plaqs columns are finite, sumlogdet
+    0 at the first step (the networks' zero init)."""
+    prefix = os.path.join(PORT_RECORDS, "su3_8x8_b57")
+    with open(prefix + "_quality_summary.json") as f:
+        want = q.key_tree(json.load(f))
+    with open(prefix + "_rerun_quality_summary.json") as f:
+        s = json.load(f)
+    assert q.key_tree(s) == want
+    assert all(math.isfinite(v) for v in _numbers(s))
+    assert s["device"].startswith("NVIDIA H100") and s["commit"]
+    with open(prefix + "_rerun_train_health.json") as f:
+        health = json.load(f)
+    with open(prefix + "_rerun_train_curve.json") as f:
+        curve = json.load(f)
+    assert health["train_steps"] == len(curve["rows"]) == 600
+    assert health["steps_grad_nonfinite"] == 0
+    assert health["grad_norm_finite_positive"]
+    cols = curve["columns"]
+    rows = np.asarray(curve["rows"])
+    assert list(rows[:, 0]) == list(range(1, 601))
+    for k in ("sumlogdet", "plaqs"):
+        assert np.isfinite(rows[:, cols.index(k)]).all(), k
+    assert rows[0, cols.index("sumlogdet")] == 0
+
+
+@pytest.mark.parametrize("name,draws", [("su3_4x4_b6", 150),
+                                        ("su3_8x8_b57", 2000)])
+def test_frozen_record_summary(name, draws):
+    """The port's committed frozen replica of a JAX SU(3) record: the JAX
+    record's key tree plus se, device and commit; values finite; the
+    record's 600 train steps and its draws; every train step's gradient
+    finite, above 0 and with no non-finite entry; the curve one row a
+    step with sumlogdet 0 and the step sizes at their start throughout."""
+    with open(os.path.join(RECORDS, f"{name}_quality_summary.json")) as f:
+        ref = json.load(f)
+    want = q.key_tree(ref)
+    se = {k: None for k in q.SE_KEYS}
+    if "dQint_flow" in ref["eval_stats"]:
+        se.update({"dQint_flow": None, "flowQ_sector_Q2": None})
+    want["se"] = {"eval_stats": se, "hmc_stats": se, "improvement": None}
+    want["device"] = want["commit"] = None
+    prefix = os.path.join(PORT_RECORDS, f"{name}_frozen_")
+    with open(prefix + "quality_summary.json") as f:
+        s = json.load(f)
+    assert q.key_tree(s) == want
+    assert all(math.isfinite(v) for v in _numbers(s))
+    assert s["device"].startswith("NVIDIA H100") and s["commit"]
+    assert s["train"]["nsteps"] == 600
+    assert s["eval"]["nsteps"] == s["hmc"]["nsteps"] == draws
+    with open(prefix + "train_health.json") as f:
+        health = json.load(f)
+    with open(prefix + "train_curve.json") as f:
+        curve = json.load(f)
+    assert health["train_steps"] == len(curve["rows"]) == 600
+    assert health["steps_grad_nonfinite"] == 0
+    assert health["grad_norm_finite_positive"]
+    cols = curve["columns"]
+    rows = np.asarray(curve["rows"])
+    assert list(rows[:, 0]) == list(range(1, 601))
+    assert (rows[:, cols.index("sumlogdet")] == 0).all()
+    for k in ("xeps", "veps"):
+        assert (rows[:, cols.index(k)] == rows[0, cols.index(k)]).all(), k
+
+
 def test_train_curve_one_row_per_step_across_a_restore(tmp_path,
                                                        monkeypatch):
     """train_curve.json of a tiny 8^4-record run split in two: era 0 with
@@ -320,6 +413,7 @@ def test_train_curve_one_row_per_step_across_a_restore(tmp_path,
         health = json.load(f)
     cols = curve["columns"]
     assert cols == ["step", "beta", *q.CURVE_KEYS]
+    assert {"sumlogdet", "plaqs"} <= set(cols)
     assert len(first["rows"]) == 3 and curve["rows"][:3] == first["rows"]
     assert [r[0] for r in curve["rows"]] == [1, 2, 3, 4, 5, 6]
     assert health["train_steps"] == 6 and s["train"]["nsteps"] == 6
@@ -330,6 +424,9 @@ def test_train_curve_one_row_per_step_across_a_restore(tmp_path,
     assert last["loss"] == pytest.approx(float(train["loss"][-1]), rel=1e-6)
     assert last["acc"] == pytest.approx(float(train["acc"][..., -1].mean()),
                                         rel=1e-6)
+    for k in ("sumlogdet", "plaqs"):
+        assert last[k] == pytest.approx(float(train[k][..., -1].mean()),
+                                        rel=1e-6, abs=1e-6), k
     for job in ("eval_stats", "hmc_stats"):
         assert {"flowQ_sector_Q2", "flowQ_max_abs_sector",
                 "dQint_flow"} <= set(s[job])

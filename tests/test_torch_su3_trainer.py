@@ -3,7 +3,8 @@ from the same state and draws (2^4, 2 chains, complex128, the JAX side op
 by op): loss and grad_norm to rtol 1e-9, params and Adam moments to 1e-8
 (Adam's first update is ~lr * sign(g), so the params inherit the
 gradients' agreement scaled by lr / (|g| + eps)); the regression gate
-grad_norm > 0 with no non-finite entry; the same JAX step against the
+grad_norm > 0 with no non-finite entry; with lr 0 the same step moves no
+parameter in either package; the same JAX step against the
 port's Trainer on a (2, 2) mesh of four gloo processes (the lattice split
 in t, the chains over 'data'), at the same tolerances; and the flowed
 eval observables (tests/test_flow_eval.py)."""
@@ -11,6 +12,7 @@ from types import SimpleNamespace
 
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -51,7 +53,7 @@ def jax_step():
     draws = fb_draws(jtr.dynamics, x, k_main, training=True)
     with jax.disable_jit():
         ts, jx, jm = jtr.train_step(ts0, x, 6.0, key)
-    return SimpleNamespace(params=params_to_numpy(ts0.params),
+    return SimpleNamespace(ts0=ts0, params=params_to_numpy(ts0.params),
                            masks=np.asarray(ts0.masks), x=x, draws=draws,
                            ts=ts, jx=jx, jm=jm)
 
@@ -99,6 +101,33 @@ def test_su3_train_step_matches(jax_step):
                 rtol=0, err_msg=f"{name} {mk}")
         n += 1
     assert n == len(list(ttr.dynamics.parameters()))
+
+
+def test_su3_train_step_with_lr_0_moves_no_parameter(jax_step):
+    """learning_rate.lr_init=0, as the `*_frozen` records run: the port's
+    step computes the JAX step's loss, gradient norm (> 0), sumlogdet, x
+    and metrics, and leaves every parameter bit-equal after its Adam
+    update; the JAX package's lr-0 optax chain, fed that step's gradient,
+    leaves its parameters bit-equal too. The step before the update reads
+    no lr, so the module's JAX step stands for the lr-0 one."""
+    lr0 = BASE + ["learning_rate.lr_init=0"]
+    ttr = TTrainer(tget_config(lr0, group="SU3"), device="cpu")
+    ttr.dynamics.load_jax_params(jax_step.params, jax_step.masks)
+    before = {n: p.detach().clone()
+              for n, p in ttr.dynamics.named_parameters()}
+    tx, tm = ttr.train_step(to_torch(jax_step.x), 6.0, draws=jax_step.draws)
+    _step_matches(tx, tm, jax_step, keys=(
+        "sumlogdet", "plaqs", "intQ", "sinQ", "dQint", "acc"))
+    assert ttr.updates == 1
+    assert ttr.optimizer.param_groups[0]["lr"] == 0.0
+    for n, p in ttr.dynamics.named_parameters():
+        assert torch.equal(p.detach(), before[n]), n
+    jtx = Trainer(get_config(lr0, group="SU3")).tx
+    p0 = jax_step.ts0.params
+    upd, _ = jtx.update(jax_step.jm["grads"], jtx.init(p0), p0)
+    leaves = jax.tree_util.tree_leaves
+    for a, b in zip(leaves(optax.apply_updates(p0, upd)), leaves(p0)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_su3_sharded_train_step_matches(jax_step, tmp_path):
