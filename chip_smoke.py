@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (l2hmc_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase below
+    python3 chip_smoke.py graph_steps    # the build, then graph_steps alone
+
+On the card every one-device train, eval and HMC step of the port is
+replayed from a CUDA graph (`Trainer._run`); the phases below drive the
+steps that way unless they say eager, which is `Trainer(graphs=False)` or
+`Trainer.twin(graphs=False)`.
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from l2hmc_torch/csrc/ (nvcc, -Xptxas -v);
-  3. hold each kernel against its plain PyTorch version on the card, at
+  3. hold each kernel, beta read from a device scalar, against its plain
+     PyTorch version on the card, at
      the main-path shape (2048 x 2x16x16, float32 and float64), a ragged
      one (37 x 2x8x12), the 64x64 lattice, and the shapes that take the
      kernels' other paths: odd nt*nx (37 x 2x5x7, no 16-byte copies),
@@ -18,16 +25,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      width (2048 chains, 16x16, nleapfrog 8, units [16]*4, BatchNorm and
      dropout on) for one era of 10 train steps, then 10 eval and 10 HMC
      draws, with the kernels' launch counters set to 0 just before and
-     read just after; then one train, eval and HMC step each, counted
+     read just after (a capture counts nothing, a replay counts its
+     graph's launches); then one train, eval and HMC step each, counted
      alone against the launches expected per step;
   5. one trajectory's launches (17 forward, 17 backward) captured in a
      CUDA graph, replayed, and held bit for bit against the eager calls;
+     a forward and a backward captured at beta 4 and replayed after the
+     device scalar is set to 2.5, against the eager kernels (bit for bit)
+     and the plain versions at 2.5;
   6. times, with CUDA events after warmup: each kernel and its plain
-     version at the main-path shape, a train, an eval and an HMC step;
-     the kernels' device time (torch.profiler), and per shape (16x16,
-     64x64 float32 and float64) their event, device, graph-replay and
-     cold-L2 times with bytes and bound (l2hmc_torch.utils.kernel_times);
-     the device's busy share over a few train steps;
+     version at the main-path shape, a train, an eval and an HMC step
+     replayed and eager (an eager twin of the same state); the kernels'
+     device time (torch.profiler), and per shape (16x16, 64x64 float32
+     and float64) their event, device, graph-replay and cold-L2 times
+     with bytes and bound (l2hmc_torch.utils.kernel_times); the device's
+     busy share over a few train steps, replayed and eager; then
+     `graph_steps` (below) on the main path's trainer;
   7. the same U(1) config with the conv front-end on its x networks
      (filters [8, 8], sizes [3, 3], pool [1, 2]), 3 train and 3 eval
      steps, the force kernels' launch counters read around it;
@@ -41,13 +54,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps; the 8^4 configuration at full width (8 chains, nleapfrog 4,
      units [32, 32], float32, mixed loss on the 12-step Wilson-flowed
      clover charge, 12-step flowed eval observables, beta 5.2 -> 5.7) for
-     200 warmup trajectories, 5 train, 5 eval and 5 HMC steps; the
+     200 warmup trajectories, 3 train, 3 eval and 3 HMC steps; the
      flowed observables replayed from their CUDA graph against the eager
-     flow, bit for bit, both timed; its step times, a profile of 2
-     train steps (kernels per step, busy share, top device and host ops,
-     peak memory), the hot ops' times beside their bounds with their
-     calls per train step (l2hmc_torch.utils.su3_times); and
-     `l2hmc_torch.train4dsu3.main` with 5 train steps;
+     flow, bit for bit, both timed; `graph_steps` on the 4^4 default's
+     and the 8^4 path's trainers; the 8^4 step times, replayed and eager,
+     a profile of 2 replayed train steps (kernels per step, busy share,
+     top device and host ops, peak memory), the hot ops' times beside
+     their bounds with their calls per (eager) train step
+     (l2hmc_torch.utils.su3_times); and `l2hmc_torch.train4dsu3.main`
+     with 5 train steps;
   9. `parallel/` and `ops/su3_algebra` (the card is one, so every process
      group here has one rank; NCCL refuses two ranks on one device, and
      the multi-rank exchanges are held on the CPU over gloo by
@@ -81,9 +96,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      the same record with lr 0 (`su3_8x8_b57_frozen`) at the same depth:
      every parameter bit-equal after the train step, grad_norm finite and
      above 0, sumlogdet 0 on every chain;
- 11. `Trainer.profile` for 2 train steps at the default U(1) width: the
-     Chrome trace it writes must hold both force kernels, 2 x 34 forward
-     and 2 x 17 backward launches, whose device times it prints.
+ 11. `Trainer.profile` for 2 replayed train steps at the default U(1)
+     width: the Chrome trace it writes must hold both force kernels, 2 x
+     34 forward and 2 x 17 backward launches, whose device times it
+     prints.
+`graph_steps`: a Trainer whose steps replay CUDA graphs and its eager
+twin, from one state, through train steps across a beta and an lr change,
+two windows of gradient accumulation (grad_accum_steps=2) across a beta
+change, eval steps, and HMC steps across an eps change; loss, x,
+parameters, buffers and Adam state held bit for bit; one graph per key
+(no recapture for a new beta, eps or lr); both ways' step times, and each
+graph's capture and instantiation time and pool memory.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound;
 the last is {"ok": true, "device": {...}}.
@@ -262,13 +285,171 @@ def su3_flow_graph(torch, tr, x, card) -> None:
     assert all(equal.values()), equal
 
 
+def _step_kind(t, before) -> str:
+    """How `t`'s last step ran, from its graphs' numbers before it."""
+    after = t.graph_stats()
+    if len(after) > len(before):
+        return "capture"
+    if sum(g["replays"] for g in after) > sum(g["replays"] for g in before):
+        return "replay"
+    return "eager"
+
+
+def graph_steps(torch, card, name, tr, x, betas, eps, lr, n_eval) -> dict:
+    """`tr` (a Trainer whose steps replay CUDA graphs) and its eager twin
+    (`Trainer.twin(graphs=False)`) run the same sequence from one state:
+    train steps at betas[0], betas[1] with the lr set to `lr` before the
+    second; six more with grad_accum_steps=2 (three windows at betas[1],
+    betas[0], betas[1], so that the accumulate-only and the update graph
+    are each replayed after a beta change); 3 eval steps on the first
+    n_eval chains; 4 HMC steps from there at eps[0], eps[0], eps[1],
+    eps[1]. Held bit for bit: every loss and x, then the
+    parameters, buffers (BN statistics, masks) and Adam moments and
+    counts. Emits each one's largest difference, the graphs per key, the
+    steps' times both ways with how each graphed step ran, and the
+    graphs' capture and instantiation times and pool memory."""
+    import statistics
+    twin = tr.twin(graphs=False)
+    k0 = tr.grad_accum_steps
+    plan = [(betas[0], 1), (betas[1], 1)]
+    if tr.step % 2:          # the accumulation windows start on an even step
+        plan.insert(0, (betas[0], 1))
+    lr_at = len(plan) - 1
+    plan += [(b, 2) for b in (betas[1], betas[1], betas[0], betas[0],
+                              betas[1], betas[1])]
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for how, t in (("graphed", tr), ("eager", twin)):
+        gen = torch.Generator(x.device).manual_seed(11)
+        losses, xs = [], []
+        ms = {"train": [], "eval": [], "hmc": []}
+        kinds = {"train": [], "eval": [], "hmc": []}
+
+        def timed(job, fn):
+            before = t.graph_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[job].append((time.perf_counter() - t0) * 1e3)
+            kinds[job].append(_step_kind(t, before))
+            return out
+
+        y = x.clone()
+        for i, (b, k) in enumerate(plan):
+            if i == lr_at:
+                t.set_lr(lr)
+            t.grad_accum_steps = k
+            y, m = timed("train", lambda: t.train_step(y, b, gen))
+            losses.append(m["loss"])
+            xs.append(y)
+        t.grad_accum_steps = k0
+        ye = y[:n_eval].contiguous()
+        for _ in range(3):
+            ye, m = timed("eval", lambda: t.eval_step(ye, betas[1], gen))
+            xs.append(ye)
+        for e in (eps[0], eps[0], eps[1], eps[1]):
+            ye, m = timed("hmc", lambda: t.hmc_step(ye, betas[1], e, gen))
+            xs.append(ye)
+        res[how] = {"losses": losses, "xs": xs, "ms": ms, "kinds": kinds}
+    torch.cuda.synchronize()
+
+    def maxdiff(pairs):
+        return max((float((a.detach().double() if not a.is_complex()
+                           else a).sub(b.detach().double() if not
+                                       b.is_complex() else b).abs().max())
+                    for a, b in pairs if a.numel()), default=0.0)
+    g, e = res["graphed"], res["eager"]
+    opt_pairs = []
+    for p, q in zip(tr.dynamics.parameters(), twin.dynamics.parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            opt_pairs.append((tr.optimizer.state[p][key],
+                              twin.optimizer.state[q][key]))
+    diff = {
+        "loss": maxdiff(zip(g["losses"], e["losses"])),
+        "x": maxdiff(zip(g["xs"], e["xs"])),
+        "parameters": maxdiff(zip(tr.dynamics.parameters(),
+                                  twin.dynamics.parameters())),
+        "buffers_bn_masks": maxdiff(zip(tr.dynamics.buffers(),
+                                        twin.dynamics.buffers())),
+        "adam_moments_and_counts": maxdiff(opt_pairs),
+    }
+    equal = (all(torch.equal(a, b) for a, b in zip(g["losses"], e["losses"]))
+             and all(torch.equal(a, b) for a, b in zip(g["xs"], e["xs"]))
+             and all(torch.equal(a, b) for a, b in zip(
+                 tr.dynamics.state_dict().values(),
+                 twin.dynamics.state_dict().values()))
+             and all(torch.equal(a, b) for a, b in opt_pairs))
+    per_key: dict = {}
+    for st in tr.graph_stats():
+        label = (f"{st['job']} x{st['shapes']['x']} {st['flags']} "
+                 f"accum {st['grad_accum_steps']}")
+        per_key[label] = per_key.get(label, 0) + 1
+
+    def replay_median(job):
+        vals = [v for v, kind in zip(g["ms"][job], g["kinds"][job])
+                if kind == "replay"]
+        return statistics.median(vals) if vals else None
+    out = {"phase": "graph_steps", "config": name, "card": card,
+           "nchains": int(x.shape[0]), "n_eval": n_eval,
+           "betas": list(betas), "eps": list(eps), "lr_set": lr,
+           "bit_equal": equal, "max_abs_diff": diff,
+           "graphs_per_key": per_key,
+           "graphed_ms": g["ms"], "graphed_step_kinds": g["kinds"],
+           "eager_ms": e["ms"],
+           "median_ms": {job: {"graphed_replay": replay_median(job),
+                               "eager": statistics.median(e["ms"][job])}
+                         for job in ("train", "eval", "hmc")},
+           "graphs": tr.graph_stats(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    assert equal, diff
+    assert all(n == 1 for n in per_key.values()), per_key
+    for job in ("train", "eval", "hmc"):
+        assert "replay" in g["kinds"][job], (job, g["kinds"])
+    del twin
+    return out
+
+
+def graph_steps_only(torch, card) -> None:
+    """`python3 chip_smoke.py graph_steps`: the graph_steps phase alone for
+    its three configurations, each after a short run of its pipeline that
+    captures its steps (U(1) default 3 + 3 + 3 steps; SU(3) 4^4 default
+    the same; the 8^4 flowed loss with 20 warmup trajectories, 3 train
+    steps and 2 draws each)."""
+    from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.utils import su3_times as st
+    runs = [("u1_default", "U1", [], (4.0, 4.5), (0.125, 0.1), 5e-4),
+            ("su3_4x4_default", "SU3", [], (6.0, 5.5), (0.05, 0.04), 5e-4),
+            ("su3_8x8_flowed_loss", "SU3",
+             st.MAIN_SU3 + ["steps.warmup=20"], (5.7, 5.5), (0.02, 0.015),
+             5e-5)]
+    for name, group, extra, betas, eps, lr in runs:
+        depth = ["steps.nepoch=2", "steps.test=2"] if extra else \
+            ["steps.nepoch=3", "steps.test=3"]
+        with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+            ex = build_experiment(extra + ["steps.nera=1", "save=false",
+                                           *depth, f"outdir={out}"],
+                                  group=group, device="cuda")
+            ex.run()
+        tr = ex.trainer
+        n_eval = ex.cfg.nchains or max(2, ex.cfg.dynamics.nchains // 4)
+        graph_steps(torch, card, name, tr, ex._x.contiguous(), betas, eps,
+                    lr, n_eval)
+        del ex, tr
+        torch.cuda.empty_cache()
+
+
 def su3_phases(torch, card, u1_ncp) -> None:
     from l2hmc_torch import train4dsu3
     from l2hmc_torch.utils import su3_times as st
     from l2hmc_torch.utils.kernel_times import cuda_ms, profiled, raw_summary
     su3_compare(torch)
-    su3_run(torch, ["steps.nera=1", "steps.nepoch=20", "steps.test=10",
-                    "save=true"], "su3_default_path", flow=False)
+    ex = su3_run(torch, ["steps.nera=1", "steps.nepoch=20", "steps.test=10",
+                         "save=true"], "su3_default_path", flow=False)
+    graph_steps(torch, card, "su3_4x4_default", ex.trainer,
+                ex._x.contiguous(), (6.0, 5.5), (0.05, 0.04), 5e-4, 2)
+    del ex
     # a fixed warmup budget, as the record's run has (1000 there): from
     # the ordered start the plaquette stands still while every proposal
     # is rejected, which the stationarity criterion would take for
@@ -282,26 +463,36 @@ def su3_phases(torch, card, u1_ncp) -> None:
     eps = cfg.dynamics.eps_hmc
     nchains = cfg.dynamics.nchains
     su3_flow_graph(torch, tr, x, card)
+    graph_steps(torch, card, "su3_8x8_flowed_loss", tr, x, (beta, 5.5),
+                (eps, 0.015), 5e-5, nchains)
 
-    def eval_draw():        # a draw as evaluate() makes it: step, then flow
-        xo, _ = tr.eval_step(x, beta, ex.generator)
-        return tr._flow_metrics(xo)
+    def steps_of(t):
+        def eval_draw():    # a draw as evaluate() makes it: step, then flow
+            xo, _ = t.eval_step(x, beta, ex.generator)
+            return t._flow_metrics(xo)
 
-    def hmc_draw():
-        xo, _ = tr.hmc_step(x, beta, eps, ex.generator)
-        return tr._flow_metrics(xo)
-
-    steps = {"train": lambda: tr.train_step(x, beta, ex.generator),
-             "eval": eval_draw, "hmc": hmc_draw}
-    # the path has just run, so the train step is warm: two timed steps,
-    # the engine's calls counted alongside (a step takes ~10 s)
-    n_timed = 2
+        def hmc_draw():
+            xo, _ = t.hmc_step(x, beta, eps, ex.generator)
+            return t._flow_metrics(xo)
+        return {"train": lambda: t.train_step(x, beta, ex.generator),
+                "eval": eval_draw, "hmc": hmc_draw}
+    steps = steps_of(tr)
+    # the path and graph_steps have run, so the graphs exist: graphed
+    # steps replay; an eager twin's step (~10 s) calls every engine op,
+    # which are counted alongside (the flow of a draw is replayed from its
+    # own graph either way)
+    eager_tr = tr.twin(graphs=False)
+    eager_steps = steps_of(eager_tr)
     with st.counting() as counts:
-        step_ms = {"train": cuda_ms(steps["train"], n_timed, warmup=0)}
-    counts = {name: c // n_timed for name, c in counts.items()}
-    step_ms.update({job: cuda_ms(steps[job], 3, warmup=1)
-                    for job in ("eval", "hmc")})
+        eager_ms = {"train": cuda_ms(eager_steps["train"], 1, warmup=0)}
+    # (the twin's first draw captures its own flow graph: not timed)
+    eager_ms.update({job: cuda_ms(eager_steps[job], 2, warmup=1)
+                     for job in ("eval", "hmc")})
+    step_ms = {job: cuda_ms(steps[job], 3, warmup=1)
+               for job in ("train", "eval", "hmc")}
+    del eager_tr, eager_steps
     emit({"phase": "su3_step_times", "card": card, "ms": step_ms,
+          "eager_ms": eager_ms, "graphs": tr.graph_stats(),
           "nchains": nchains, "lattice": list(cfg.dynamics.latvolume),
           "dtype": "float32", "flow_steps_per_draw": cfg.flow_nsteps})
 
@@ -343,7 +534,7 @@ def su3_phases(torch, card, u1_ncp) -> None:
           # the profiler slows the host several times over: the share of
           # a step timed without it
           "device_busy_share_unprofiled": busy_ms / n_prof
-          / step_ms["train"],
+          / step_ms["train"], "steps_run": "graphed",
           "device_kernels_per_step": sum(c for c, _ in kern.values())
           / n_prof, "host_events_per_step": sum(c for c, _ in host.values())
           / n_prof, "peak_memory_bytes": peak,
@@ -537,7 +728,7 @@ def records_su3_frozen_phase(torch) -> None:
                    if not torch.equal(p.detach(), before[n]))
     sumlogdet = ex.trainer.histories["train"].get_dataset()["sumlogdet"]
     emit({"phase": "records_su3_frozen", "seconds": seconds,
-          "lr": ex.trainer.optimizer.param_groups[0]["lr"],
+          "lr": ex.trainer.lr,
           "updates": ex.trainer.updates, "params": len(params),
           "moved": moved, "health": health,
           "train_curve_last": q.last_row(curve),
@@ -553,14 +744,17 @@ def records_su3_frozen_phase(torch) -> None:
 
 def trainer_profile_phase(torch, card) -> None:
     """`Trainer.profile` for 2 train steps at the default U(1) width on
-    the card: its Chrome trace must exist and hold both force kernels, as
-    often as two train steps launch them."""
+    the card, replayed from the step's CUDA graph (its first, eager step
+    and its capture untraced): the Chrome trace must exist and hold both
+    force kernels, as often as two train steps launch them."""
     from l2hmc_torch.configs import get_config
     from l2hmc_torch.train.trainer import Trainer
     tr = Trainer(get_config([]), device="cuda")
     gen = torch.Generator("cuda").manual_seed(0)
     beta = float(tr.cfg.annealing_schedule.beta_init)
-    x, _ = tr.train_step(tr.random_x(gen), beta, gen)   # set-up untraced
+    x = tr.random_x(gen)
+    for _ in range(2):                          # set-up untraced
+        x, _ = tr.train_step(x, beta, gen)
     nsteps, nlf = 2, tr.cfg.dynamics.nleapfrog
     with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
         t0 = time.perf_counter()
@@ -578,6 +772,7 @@ def trainer_profile_phase(torch, card) -> None:
             if f"{k}_kernel" in e.get("name", ""):
                 n, us = found.get(k, (0, 0.0))
                 found[k] = (n + 1, us + float(e.get("dur", 0.0)))
+    assert tr.graph_stats()[0]["replays"] == 1 + nsteps, tr.graph_stats()
     emit({"phase": "trainer_profile", "card": card, "steps": nsteps,
           "seconds": seconds, "trace": path, "trace_bytes": size,
           "kernels": {k: {"launches": n, "device_us_per_launch": us / n}
@@ -627,8 +822,7 @@ def parallel_phases(torch, uk) -> None:
         plain = Trainer(cfg, device="cuda")
         plain.dynamics.load_state_dict(dp.dynamics.state_dict())
         # a deep copy: load_state_dict would share the moment tensors
-        plain.optimizer.load_state_dict(copy.deepcopy(
-            dp.optimizer.state_dict()))
+        plain.load_optimizer_state(copy.deepcopy(dp.optimizer.state_dict()))
         plain.step, plain.updates = dp.step, dp.updates
         x = ex._x.contiguous()
         gen = torch.Generator(x.device).manual_seed(1)
@@ -748,6 +942,12 @@ def main() -> int:
     print(nvcc_out, file=sys.stderr, flush=True)
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
+    if sys.argv[1:] == ["graph_steps"]:
+        graph_steps_only(torch, card)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(dev).manual_seed(0)
@@ -775,14 +975,16 @@ def main() -> int:
         if why == OFF_ALIGNMENT:
             x = kt.offset_view(x)
             assert x.data_ptr() % 16 != 0 and x.is_contiguous()
-        f, a = uk.force_action(x, beta, nt, nx)
+        # beta from device memory, as the steps pass it
+        bd = torch.full((), beta, dtype=dtype, device=dev)
+        f, a = uk.force_action(x, bd, nt, nx)
         fp, ap = uk.force_action_plain(x, beta, nt, nx)
         gf = torch.randn(x.shape, generator=gen, device=dev, dtype=dtype)
         gs = torch.randn((nb,), generator=gen, device=dev, dtype=dtype)
-        b = uk.force_action_bwd(x, gf, gs, f, beta, nt, nx)
+        b = uk.force_action_bwd(x, gf, gs, f, bd, nt, nx)
         bp = uk.force_action_bwd_plain(x, gf, gs, f, beta, nt, nx)
         # gS absent (what the training path sends) against gS = 0
-        b0 = uk.force_action_bwd(x, gf, None, None, beta, nt, nx)
+        b0 = uk.force_action_bwd(x, gf, None, None, bd, nt, nx)
         b0p = uk.force_action_bwd_plain(x, gf, torch.zeros_like(gs), f, beta,
                                         nt, nx)
         torch.cuda.synchronize()
@@ -803,7 +1005,7 @@ def main() -> int:
         errs[(nb, nt, nx, str(dtype))] = err
         emit({"phase": "compare", "shape": [nb, 2 * nt * nx], "nt": nt,
               "nx": nx, "dtype": str(dtype).replace("torch.", ""),
-              "why": why, "max_abs_err": err})
+              "why": why, "beta": "device scalar", "max_abs_err": err})
     xg = (torch.rand((3, 2 * 4 * 4), generator=gen, device=dev,
                      dtype=torch.float64) * 2 - 1) * math.pi
     assert torch.autograd.gradcheck(
@@ -842,8 +1044,9 @@ def main() -> int:
     least_fwd = (nepoch * per_step["train"][0] + ntest * per_step["eval"][0]
                  + ntest * per_step["hmc"][0])
     assert launches["u1_force_fwd"] >= least_fwd, launches
+    assert tr.use_graphs and tr.graph_stats(), "the main path took no graph"
     emit({"phase": "main_path", "seconds": main_s, "launches": launches,
-          "summary": summary})
+          "graphs": tr.graph_stats(), "summary": summary})
 
     x = ex._x.contiguous()
     beta_f = float(cfg.annealing_schedule.beta_final)
@@ -879,17 +1082,40 @@ def main() -> int:
         "bwd_no_gs": lambda i=0: uk.force_action_bwd(xk, gk, None, None, beta,
                                                      nt, nx),
     }
+    # beta from device memory, as on the main path; a graph captured at
+    # one beta replays at whatever the scalar then holds
+    beta = torch.full((), beta, device=dev)
     n_graph = 2 * nlf + 1
     bk0 = calls["bwd_no_gs"]()
     replay_ms = {}
     for key, eager in [("fwd", (fk, ak)), ("bwd_no_gs", (bk0,))]:
-        replay_ms[key], outs = kt.graph_replay(calls[key], n_graph)
+        replay_ms[key], outs = kt.graph_replay(calls[key], n_graph, uk=uk)
         torch.cuda.synchronize()
         for out in outs:
             out = out if isinstance(out, tuple) else (out,)
             assert all(torch.equal(o, e) for o, e in zip(out, eager)), key
+    graph = torch.cuda.CUDAGraph()
+    with uk.captured_launches() as rec, torch.cuda.graph(graph):
+        g_out = calls["fwd"]() + (calls["bwd_no_gs"](),)
+    beta.fill_(2.5)
+    graph.replay()
+    uk.count_replay(rec)
+    at_2_5 = calls["fwd"]() + (calls["bwd_no_gs"](),)
+    plain_2_5 = uk.force_action_plain(xk, 2.5, nt, nx) + (
+        uk.force_action_bwd_plain(xk, gk, None, None, 2.5, nt, nx),)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, e) for o, e in zip(g_out, at_2_5))
+    torch.testing.assert_close(g_out[0], plain_2_5[0], atol=2e-5, rtol=0)
+    torch.testing.assert_close(g_out[1], plain_2_5[1], atol=0, rtol=2e-5)
+    torch.testing.assert_close(g_out[2], plain_2_5[2], atol=1e-4, rtol=0)
+    beta_err = [float((o - e).abs().max()) for o, e in zip(g_out, plain_2_5)]
+    beta.fill_(4.0)
+    del graph
     emit({"phase": "graph_capture", "card": card, "launches_per_graph":
-          n_graph, "equal_to_eager": True, "replay_ms_per_launch": replay_ms})
+          n_graph, "equal_to_eager": True, "replay_ms_per_launch": replay_ms,
+          "captured_at_beta_4_replayed_at_2.5": {
+              "equal_to_eager_at_2.5": True,
+              "max_abs_err_vs_plain_fwd_act_bwd": beta_err}})
 
     # -- 6. times -------------------------------------------------------------
     reps, batches = 200, 5      # the median of 5 means over 200 calls
@@ -904,9 +1130,21 @@ def main() -> int:
             xk, gk, gsk, fk, beta, nt, nx))]}
     emit({"phase": "kernel_times", "card": card, "shape": [nb, 2 * nt * nx],
           "dtype": "float32", "reps": reps, "batches": batches, "ms": t})
+    # the steps as the Trainer takes them (replayed from their graphs)
+    # and an eager twin of the same state, the counterpart of
+    # jax.disable_jit()
+    eager_tr = tr.twin(graphs=False)
+    eager_steps = {
+        "train": lambda: eager_tr.train_step(x, beta_f, ex.generator),
+        "eval": lambda: eager_tr.eval_step(xe, beta_f, ex.generator),
+        "hmc": lambda: eager_tr.hmc_step(xe, beta_f, eps, ex.generator),
+    }
     step_ms = {job: cuda_ms(fn, 20 if job == "train" else 50,
                             warmup=3) for job, fn in steps.items()}
+    eager_ms = {job: cuda_ms(fn, 5 if job == "train" else 20,
+                             warmup=1) for job, fn in eager_steps.items()}
     emit({"phase": "step_times", "card": card, "ms": step_ms,
+          "eager_ms": eager_ms, "graphs": tr.graph_stats(),
           "nchains": {"train": nb, "eval": int(xe.shape[0]),
                       "hmc": int(xe.shape[0])}})
 
@@ -930,25 +1168,33 @@ def main() -> int:
               **kt.measure(uk, *shape)})
 
     n_prof = 3
-    t0 = time.perf_counter()
-    prof = profiled(steps["train"], n_prof)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = device_kernels(prof)
-    busy_ms = sum(us for _, us in kern.values()) / 1e3
-    top_dev = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
-    top_cpu = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total
-                     )[:8]
-    emit({"phase": "train_profile", "card": card, "steps": n_prof,
-          "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / wall_ms if kern else None,
-          "device_kernels_per_step": sum(c for c, _ in kern.values())
-          / n_prof,
-          "fill_kernels_per_step": sum(c for k, (c, _) in kern.items()
-                                       if "FillFunctor" in k) / n_prof,
-          "top_device_ms": {k[:70]: us / 1e3 for k, (_, us) in top_dev},
-          "top_host_self_ms": {e.key[:70]: e.self_cpu_time_total / 1e3
-                               for e in top_cpu}})
+    for how, fn in (("graphed", steps["train"]),
+                    ("eager", eager_steps["train"])):
+        t0 = time.perf_counter()
+        prof = profiled(fn, n_prof)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = device_kernels(prof)
+        busy_ms = sum(us for _, us in kern.values()) / 1e3
+        top_dev = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
+        top_cpu = sorted(prof.key_averages(),
+                         key=lambda e: -e.self_cpu_time_total)[:8]
+        emit({"phase": "train_profile", "steps_run": how, "card": card,
+              "steps": n_prof, "wall_ms_profiled": wall_ms,
+              "device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / wall_ms if kern else None,
+              "device_busy_share_unprofiled": busy_ms / n_prof
+              / (step_ms if how == "graphed" else eager_ms)["train"],
+              "device_kernels_per_step": sum(c for c, _ in kern.values())
+              / n_prof,
+              "fill_kernels_per_step": sum(c for k, (c, _) in kern.items()
+                                           if "FillFunctor" in k) / n_prof,
+              "top_device_ms": {k[:70]: us / 1e3 for k, (_, us) in top_dev},
+              "top_host_self_ms": {e.key[:70]: e.self_cpu_time_total / 1e3
+                                   for e in top_cpu}})
+    del eager_tr, eager_steps
 
+    graph_steps(torch, card, "u1_default", tr, x, (beta_f, beta_f + 0.5),
+                (eps, 0.8 * eps), 0.5 * tr.lr, int(xe.shape[0]))
     u1_conv_path(torch, uk)
     # 2 x-updates a leapfrog step, 2 nlf steps, run and recomputed
     u1_ncp = st.u1_ncp_row(tr.dynamics, nb, calls=8 * nlf)

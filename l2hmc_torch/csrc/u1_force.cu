@@ -53,6 +53,14 @@
 //    stores of the result, and shifts in place of the divisions by nx.
 //    Other nx take the site-per-thread path with runtime nx.
 //
+//  - beta is a device operand, as the TPU kernel's is an SMEM operand: a
+//    pointer to one value of the kernel's dtype, which every thread reads
+//    once when the kernel starts (the same address for all, so one
+//    request per warp) and keeps in a register. The read is not waited on
+//    before the first chain's copy is issued, and a CUDA graph captured
+//    at one beta computes with whatever value the pointer holds when it
+//    is replayed.
+//
 // Shared memory per block: groups x (stages x S + nt*nx*sizeof(T)), with
 // S = 2*nt*nx*sizeof(T) (forward) or twice that (backward); with one stage
 // and one group that is 3 resp. 5 words per site, which the wrapper
@@ -400,11 +408,12 @@ struct BackwardChain {
 template <typename T, int NX, int GW>
 __global__ void __launch_bounds__(kThreads)
 u1_force_fwd_kernel(const T* __restrict__ x, T* __restrict__ force,
-                    T* __restrict__ act, T beta, int nb, int nt, int nx,
-                    int stages, int bulk) {
+                    T* __restrict__ act, const T* __restrict__ beta, int nb,
+                    int nt, int nx, int stages, int bulk) {
   __shared__ T partial[kWarps];
   const int V = nt * (NX ? NX : nx);
-  ForwardChain<T, NX, GW> chain{force, act, partial, beta, nt, nx, V, T(0)};
+  ForwardChain<T, NX, GW> chain{force, act, partial, __ldg(beta),
+                                nt,    nx,  V,       T(0)};
   stream_chains<T, GW>(x, static_cast<const T*>(nullptr), nb, 2 * V, stages,
                        bulk != 0, chain);
 }
@@ -414,9 +423,11 @@ __global__ void __launch_bounds__(kThreads)
 u1_force_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g_force,
                     const T* __restrict__ g_act,
                     const T* __restrict__ force, T* __restrict__ x_bar,
-                    T beta, int nb, int nt, int nx, int stages, int bulk) {
+                    const T* __restrict__ beta, int nb, int nt, int nx,
+                    int stages, int bulk) {
   const int V = nt * (NX ? NX : nx);
-  BackwardChain<T, NX, GW> chain{g_act, force, x_bar, beta, nt, nx, V};
+  BackwardChain<T, NX, GW> chain{g_act, force, x_bar, __ldg(beta),
+                                 nt,    nx,    V};
   stream_chains<T, GW>(x, g_force, nb, 2 * V, stages, bulk != 0, chain);
 }
 
@@ -597,24 +608,23 @@ int run(const Plan& plan, void** args, void* stream) {
 }
 
 template <typename T>
-int launch_fwd(const void* x, void* force, void* act, double beta, int nb,
-               int nt, int nx, int device, void* stream) {
+int launch_fwd(const void* x, void* force, void* act, const void* beta,
+               int nb, int nt, int nx, int device, void* stream) {
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   Plan plan;
   const cudaError_t err = make_plan<Fwd, T>(
       aligned16(x) && aligned16(force), nb, nt, nx, 1, device, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  T beta_t = static_cast<T>(beta);
-  void* args[] = {&x,  &force, &act,         &beta_t,   &nb,
+  void* args[] = {&x,  &force, &act,         &beta,     &nb,
                   &nt, &nx,    &plan.stages, &plan.bulk};
   return run(plan, args, stream);
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* g_force, const void* g_act,
-               const void* force, void* x_bar, double beta, int nb, int nt,
-               int nx, int device, void* stream) {
+               const void* force, void* x_bar, const void* beta, int nb,
+               int nt, int nx, int device, void* stream) {
   DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
   const bool aligned = aligned16(x) && aligned16(g_force) &&
@@ -623,8 +633,7 @@ int launch_bwd(const void* x, const void* g_force, const void* g_act,
   const cudaError_t err =
       make_plan<Bwd, T>(aligned, nb, nt, nx, 2, device, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  T beta_t = static_cast<T>(beta);
-  void* args[] = {&x,  &g_force, &g_act, &force,       &x_bar,    &beta_t,
+  void* args[] = {&x,  &g_force, &g_act, &force,       &x_bar,    &beta,
                   &nb, &nt,      &nx,    &plan.stages, &plan.bulk};
   return run(plan, args, stream);
 }
@@ -633,27 +642,27 @@ int launch_bwd(const void* x, const void* g_force, const void* g_act,
 
 extern "C" {
 
-int u1_force_fwd_f32(const void* x, void* force, void* act, double beta,
+int u1_force_fwd_f32(const void* x, void* force, void* act, const void* beta,
                      int nb, int nt, int nx, int device, void* stream) {
   return launch_fwd<float>(x, force, act, beta, nb, nt, nx, device, stream);
 }
 
-int u1_force_fwd_f64(const void* x, void* force, void* act, double beta,
+int u1_force_fwd_f64(const void* x, void* force, void* act, const void* beta,
                      int nb, int nt, int nx, int device, void* stream) {
   return launch_fwd<double>(x, force, act, beta, nb, nt, nx, device, stream);
 }
 
 // g_act may be null: the gS * F term is then left out and force is not read.
 int u1_force_bwd_f32(const void* x, const void* g_force, const void* g_act,
-                     const void* force, void* x_bar, double beta, int nb,
-                     int nt, int nx, int device, void* stream) {
+                     const void* force, void* x_bar, const void* beta,
+                     int nb, int nt, int nx, int device, void* stream) {
   return launch_bwd<float>(x, g_force, g_act, force, x_bar, beta, nb, nt, nx,
                            device, stream);
 }
 
 int u1_force_bwd_f64(const void* x, const void* g_force, const void* g_act,
-                     const void* force, void* x_bar, double beta, int nb,
-                     int nt, int nx, int device, void* stream) {
+                     const void* force, void* x_bar, const void* beta,
+                     int nb, int nt, int nx, int device, void* stream) {
   return launch_bwd<double>(x, g_force, g_act, force, x_bar, beta, nb, nt,
                             nx, device, stream);
 }

@@ -95,7 +95,7 @@ class Experiment:
             else:
                 tr = self.trainer
                 tr.dynamics.load_state_dict(tree["dynamics"])
-                tr.optimizer.load_state_dict(tree["optimizer"])
+                tr.load_optimizer_state(tree["optimizer"])
                 tr.step = int(tree["step"])
                 tr.updates = int(tree["updates"])
                 tr.restore_accumulated_grads(tree.get("acc_grads"))

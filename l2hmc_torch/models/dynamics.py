@@ -37,8 +37,11 @@ backward pass (`torch.utils.checkpoint`, the counterpart of
 `jax.checkpoint`); SU(3) steps are not, as in the reference.
 
 Randomness: every function that consumes it also accepts its draws as
-tensors — momenta `v`, MH uniforms `u`, dropout masks, the initial x — and
-without them samples from the `torch.Generator` it is given. The dropout
+tensors — momenta `v`, MH uniforms `u`, dropout masks, the initial x, and
+the single-direction transition's direction `forward` — and without them
+samples from the `torch.Generator` it is given. beta and the HMC eps may
+be 0-d tensors: nothing here reads them on the host, so a CUDA graph of a
+step reads them when it is replayed. The dropout
 masks of one trajectory are one bool tensor (8*nlf, nb, units[-1]); the
 call j (0..3) of step k in direction d uses row k*8 + j + (4 if d < 0),
 the index the JAX package folds into its dropout key.
@@ -67,7 +70,9 @@ from l2hmc_torch.utils import mh
 class State(NamedTuple):
     x: torch.Tensor
     v: torch.Tensor
-    beta: float
+    #: a 0-d tensor on the step's path (a graph replays whatever it
+    #: holds); a number works everywhere too
+    beta: torch.Tensor
 
 
 class MonteCarloStates(NamedTuple):

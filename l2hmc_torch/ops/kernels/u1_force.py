@@ -21,12 +21,18 @@ There is no fallback from the kernel to the plain version.
 
 A launch goes to PyTorch's current stream, never synchronises and does
 its set-up once, so it can be captured in a CUDA graph (after one warm
-call, which builds and loads the library). beta is a Python number or a
-CPU scalar; a CUDA tensor is refused, since reading it would synchronise.
+call, which builds and loads the library). beta reaches the kernel as a
+device operand, as it reaches the TPU kernel through SMEM: a 0-d tensor on
+x's device is passed by pointer and read by the kernel when it runs, so a
+graph captured at one beta replays at whatever value that tensor holds; a
+Python number or a CPU scalar is first written into a device scalar.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (`force_action.launches`, `force_action_bwd.launches`), so a run can
-show that its force evaluations went through the kernels.
+show that its force evaluations went through the kernels. A capture
+launches nothing: `captured_launches()` takes the launches recorded during
+a capture off the counters and keeps them, and `count_replay` adds them
+back once per replay of that graph.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
@@ -152,13 +159,13 @@ def _load() -> None:
     per dtype."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, d, i = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
     for dtype, sfx in _SUFFIX.items():
         fwd = getattr(lib, f"u1_force_fwd_{sfx}")
-        fwd.argtypes = [p, p, p, d, i, i, i, i, p]
+        fwd.argtypes = [p, p, p, p, i, i, i, i, p]
         fwd.restype = i
         bwd = getattr(lib, f"u1_force_bwd_{sfx}")
-        bwd.argtypes = [p, p, p, p, p, d, i, i, i, i, p]
+        bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         bwd.restype = i
         _FWD[dtype], _BWD[dtype] = fwd, bwd
     lib.u1_force_error_string.argtypes = [i]
@@ -174,18 +181,30 @@ def _raise_launch_error(name: str, rc: int):
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-def _beta_value(beta) -> float:
-    if isinstance(beta, torch.Tensor):
-        if beta.requires_grad:
-            raise ValueError(
-                "beta is a non-trainable scalar here: the force kernel's "
-                "autograd.Function returns no gradient for it")
-        if beta.device.type != "cpu":
-            raise ValueError(
-                f"beta is a tensor on {beta.device}: reading it would "
-                "synchronise with the device; pass a Python number or a "
-                "CPU scalar")
-    return float(beta)
+def _beta_arg(beta):
+    """beta as given (a number or a tensor), refused if it wants a
+    gradient."""
+    if isinstance(beta, torch.Tensor) and beta.requires_grad:
+        raise ValueError(
+            "beta is a non-trainable scalar here: the force kernel's "
+            "autograd.Function returns no gradient for it")
+    return beta
+
+
+def beta_operand(beta, x: torch.Tensor) -> torch.Tensor:
+    """beta as the kernel reads it: a contiguous 0-d tensor of x's dtype
+    on x's device. A tensor on x's device is passed on (cast if its dtype
+    differs), never read on the host; a number or a CPU scalar is written
+    into a new device scalar."""
+    beta = _beta_arg(beta)
+    if isinstance(beta, torch.Tensor) and beta.device == x.device:
+        if beta.numel() != 1:
+            raise ValueError(f"beta must be one value, got shape "
+                             f"{tuple(beta.shape)}")
+        return beta.reshape(()).to(x.dtype).contiguous()
+    if isinstance(beta, torch.Tensor) and beta.device.type != "cpu":
+        raise ValueError(f"beta is on {beta.device}, x on {x.device}")
+    return torch.full((), float(beta), dtype=x.dtype, device=x.device)
 
 
 def _check_cuda(name: str, x: torch.Tensor, nt: int, nx: int,
@@ -229,15 +248,16 @@ def force_action(x: torch.Tensor, beta, nt: int, nx: int):
     if x.device.type == "cpu":
         return force_action_plain(x, beta, nt, nx)
     nb = _check_cuda("u1_force_fwd", x, nt, nx, FWD_WORDS)
-    beta = _beta_value(beta)
+    beta = beta_operand(beta, x)
     force = torch.empty_like(x)
     act = x.new_empty((nb,))
     if nb == 0:
         return force, act
     if not _FWD:
         _load()
-    rc = _FWD[x.dtype](x.data_ptr(), force.data_ptr(), act.data_ptr(), beta,
-                       nb, nt, nx, x.device.index, _raw_stream(x))
+    rc = _FWD[x.dtype](x.data_ptr(), force.data_ptr(), act.data_ptr(),
+                       beta.data_ptr(), nb, nt, nx, x.device.index,
+                       _raw_stream(x))
     if rc != 0:
         _raise_launch_error("u1_force_fwd", rc)
     force_action.launches += 1
@@ -261,7 +281,7 @@ def force_action_bwd(x: torch.Tensor, g_force: torch.Tensor,
             force.shape != x.shape or tuple(g_act.shape) != (nb,))):
         raise ValueError("u1_force_bwd: g_force and force must be shaped "
                          "like x and g_act (nb,)")
-    beta = _beta_value(beta)
+    beta = beta_operand(beta, x)
     x_bar = torch.empty_like(x)
     if nb == 0:
         return x_bar
@@ -270,8 +290,8 @@ def force_action_bwd(x: torch.Tensor, g_force: torch.Tensor,
     rc = _BWD[x.dtype](x.data_ptr(), g_force.data_ptr(),
                        g_act.data_ptr() if with_act else None,
                        force.data_ptr() if with_act else None,
-                       x_bar.data_ptr(), beta, nb, nt, nx, x.device.index,
-                       _raw_stream(x))
+                       x_bar.data_ptr(), beta.data_ptr(), nb, nt, nx,
+                       x.device.index, _raw_stream(x))
     if rc != 0:
         _raise_launch_error("u1_force_bwd", rc)
     force_action_bwd.launches += 1
@@ -292,9 +312,37 @@ def reset_launch_counts() -> None:
     force_action_bwd.launches = 0
 
 
+def _add_launch_counts(counts: dict, sign: int = 1) -> None:
+    force_action.launches += sign * counts.get("u1_force_fwd", 0)
+    force_action_bwd.launches += sign * counts.get("u1_force_bwd", 0)
+
+
+@contextmanager
+def captured_launches():
+    """Around a CUDA-graph capture: yields a dict that holds, on exit,
+    the launches the capture recorded, and takes them off the counters
+    (recording is not launching). `count_replay(that dict)` then counts
+    them once per replay."""
+    before = launch_counts()
+    recorded: dict = {}
+    try:
+        yield recorded
+    finally:
+        after = launch_counts()
+        recorded.update({k: after[k] - before[k] for k in after})
+        _add_launch_counts(recorded, -1)
+
+
+def count_replay(recorded: dict) -> None:
+    """Count the launches of one replay of a graph whose capture
+    `captured_launches` recorded."""
+    _add_launch_counts(recorded)
+
+
 class ForceAction(torch.autograd.Function):
     """(force, action) of x with the backward kernel as its VJP. beta is
-    a non-trainable scalar: no gradient is returned for it. An output
+    a non-trainable scalar (on the card a device scalar, shared by the
+    forward and the backward launch): no gradient is returned for it. An output
     that was not used arrives in backward as None, not as zeros: without
     g_act the kernel skips the gS F term and never reads F."""
 
@@ -325,4 +373,6 @@ class ForceAction(torch.autograd.Function):
 def force_action_ad(x: torch.Tensor, beta, nt: int, nx: int):
     """Differentiable (force, action); the port's counterpart of
     `u1_kernels.force_action_ad`."""
-    return ForceAction.apply(x.contiguous(), _beta_value(beta), nt, nx)
+    x = x.contiguous()
+    beta = beta_operand(beta, x) if x.is_cuda else _beta_arg(beta)
+    return ForceAction.apply(x, beta, nt, nx)

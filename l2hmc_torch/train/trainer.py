@@ -35,15 +35,26 @@ the data axis before anything reads it, so the logged means, the warmup's
 eps, the plateau lr, the dynamic HMC eps and the stuck-chain redraw are
 decided on global means, alike on every rank.
 
+Compiled steps: on one CUDA device every train, eval and HMC step is
+replayed from a CUDA graph, the counterpart of the JAX package's jitted
+`_jit_train_step` / `_jit_eval_step` / `_jit_hmc_step` (`_run`). The
+step's random draws are made before it from the caller's generator, in
+the order the eager step makes them inline (`_step_draws`); beta, the HMC
+eps and the draws are copied into the graph's static inputs, and the lr
+is a device scalar of the optimizer (`train/optim.py`), so one graph
+serves every value. `Trainer(..., graphs=False)` runs the steps eagerly
+(the counterpart of `jax.disable_jit()`); the CPU and a mesh always do.
+
 Timing: each timed region starts and ends with `torch.cuda.synchronize()`
 on the card, so a step time is device time, not enqueue time.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,8 +66,10 @@ from l2hmc_torch.ops import lattice_u1
 from l2hmc_torch.ops import su3 as su3g
 from l2hmc_torch.ops import su3_comp as comp
 from l2hmc_torch.ops import wilson_flow as wf
+from l2hmc_torch.ops.kernels import u1_force
 from l2hmc_torch.parallel import mesh as pmesh
 from l2hmc_torch.train.annealing import Annealer, ReduceLROnPlateau
+from l2hmc_torch.train.optim import Adam
 from l2hmc_torch.utils.history import History, summarize_dict
 from l2hmc_torch.utils.step_timer import StepTimer
 
@@ -101,11 +114,25 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _StepGraph(NamedTuple):
+    """One captured step: the graph, its static inputs and outputs, the
+    force-kernel launches it holds, and its capture's numbers."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: dict
+    outputs: tuple
+    launches: dict
+    stats: dict
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None,
-                 mesh: Optional[pmesh.Mesh] = None):
+                 mesh: Optional[pmesh.Mesh] = None, graphs: bool = True):
         """`mesh`: None for one device; a (n, 1) mesh splits the chains
-        over n ranks; a (d, l > 1) mesh also splits the SU(3) lattice."""
+        over n ranks; a (d, l > 1) mesh also splits the SU(3) lattice.
+        `graphs`: on one CUDA device, replay every train, eval and HMC
+        step from a CUDA graph (the default; the counterpart of the JAX
+        package's jitted steps); False runs them eagerly, the counterpart
+        of `jax.disable_jit()`. The CPU and a mesh run eagerly."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -122,8 +149,8 @@ class Trainer:
         self.sharded = None
 
         lr = cfg.learning_rate
-        self.optimizer = torch.optim.Adam(self.dynamics.parameters(),
-                                          lr=lr.lr_init, eps=1e-8)
+        self.optimizer = Adam(self.dynamics.parameters(), lr=lr.lr_init,
+                              eps=1e-8)
         self._plateau = None
         if lr.schedule != "noam" and not (lr.warmup and lr.warmup > 0) \
                 and lr.factor and lr.factor < 1.0:
@@ -149,6 +176,13 @@ class Trainer:
         self.trackers = None   # optional utils.trackers.Trackers fan-out
         #: the flowed observables' CUDA graphs, by input shape
         self._flow_graphs: dict = {}
+        #: the steps' CUDA graphs by key (`_run`), the keys whose first,
+        #: eager step has run, and the graphs' one memory pool
+        self.use_graphs = (bool(graphs) and self.device.type == "cuda"
+                           and mesh is None)
+        self._graphs: dict = {}
+        self._warm: set = set()
+        self._pool = None
 
         if mesh is not None:
             # every rank starts from rank 0's weights and masks
@@ -248,6 +282,11 @@ class Trainer:
     # ------------------------------------------------------------------
     # Learning rate
     # ------------------------------------------------------------------
+    @property
+    def lr(self) -> float:
+        """The rate of the next Adam update, on the host."""
+        return self.optimizer.lr
+
     def _scheduled_lr(self) -> float:
         """lr for the next Adam update, evaluated at the count of updates
         applied so far (optax evaluates its schedules the same way)."""
@@ -260,11 +299,89 @@ class Trainer:
             return lr.lr_init * d ** -0.5 * min(s ** -0.5, s * w ** -1.5)
         if lr.warmup and lr.warmup > 0:
             return lr.lr_init * min(count, lr.warmup) / lr.warmup
-        return self.optimizer.param_groups[0]["lr"]
+        return self.optimizer.lr
 
     def set_lr(self, lr: float) -> None:
-        for group in self.optimizer.param_groups:
-            group["lr"] = float(lr)
+        """Write the rate into the optimizer's device scalar, which the
+        next update reads (eager or replayed)."""
+        self.optimizer.set_lr(lr)
+
+    def load_optimizer_state(self, state: dict) -> None:
+        """Restore the optimizer (its own state dict or torch.optim.Adam's)
+        and drop the captured steps, which hold the old state's tensors."""
+        self.optimizer.load_state_dict(state)
+        self._graphs.clear()
+        self._warm.clear()
+
+    def _scalar(self, value) -> torch.Tensor:
+        """beta or eps as the step reads it: a 0-d tensor of the real
+        dtype on the device (written by a fill: no synchronisation)."""
+        rdt = self.dynamics.real_dtype
+        if isinstance(value, torch.Tensor) and value.device == self.device:
+            return value.reshape(()).to(rdt)
+        return torch.full((), float(value), dtype=rdt, device=self.device)
+
+    # ------------------------------------------------------------------
+    # Random draws, made before the step
+    # ------------------------------------------------------------------
+    def _transition_draws(self, x, generator, training: bool,
+                          given: Optional[dict] = None, hmc: bool = False,
+                          prefix: str = "") -> dict:
+        """The draws of one transition from x (this rank's chains), made
+        in the order the transition makes them inline: the direction
+        (single-direction L2HMC; a bool, part of the graph key), v, the
+        dropout masks (training with dropout), the MH uniforms u. What
+        `given` holds is taken (on a mesh: global, blocked here) and what
+        it lacks is drawn at the global shape."""
+        dyn = self.dynamics
+        given = given or {}
+        out = {}
+        if not hmc and not self.cfg.dynamics.merge_directions:
+            fwd = given.get("forward")
+            if fwd is None:
+                fwd = bool(torch.rand((), generator=generator,
+                                      device=x.device) < 0.5)
+            out["forward"] = bool(fwd)
+        n = x.shape[0] * (self.mesh.n_data if self.mesh is not None else 1)
+        vx = x if self.mesh is None else x.new_empty((n, *x.shape[1:]))
+        out["v"] = given["v"] if "v" in given else dyn.random_v(vx,
+                                                                 generator)
+        if not hmc and dyn._dropout_on(training):
+            out["dropout_masks"] = (
+                given["dropout_masks"] if "dropout_masks" in given
+                else dyn.random_dropout_masks(n, generator))
+        out["u"] = given["u"] if "u" in given else torch.rand(
+            (n,), generator=generator, dtype=dyn.real_dtype, device=x.device)
+        for k, t in out.items():
+            if isinstance(t, torch.Tensor):
+                t = t.to(x.device)
+                if self.mesh is not None:
+                    t = self.mesh.block(t, "data",
+                                        1 if k == "dropout_masks" else 0)
+                out[k] = t
+        return {prefix + k: t for k, t in out.items()}
+
+    def _step_draws(self, job: str, x, generator,
+                    draws: Optional[dict]) -> dict:
+        """Every draw of one step, in the order the step would make them
+        inline; `draws` may hold the main transition's. A train step with
+        loss.aux_weight > 0 adds its second pass's fresh start `y` and
+        that pass's draws (keys prefixed "aux_")."""
+        out = self._transition_draws(x, generator, job == "train", draws,
+                                     hmc=job == "hmc")
+        if job == "train" and self.cfg.loss.aux_weight > 0:
+            n = x.shape[0] * (self.mesh.n_data if self.mesh else 1)
+            y = self.random_x(generator, n)
+            out["aux_y"] = y
+            out.update(self._transition_draws(y, generator, True,
+                                              prefix="aux_"))
+        return out
+
+    @staticmethod
+    def _pass_draws(d: dict, prefix: str = "") -> dict:
+        """The keyword draws of one transition out of a step's draws."""
+        keys = ("forward", "v", "u", "dropout_masks")
+        return {k: d[prefix + k] for k in keys if prefix + k in d}
 
     # ------------------------------------------------------------------
     # Steps
@@ -274,34 +391,57 @@ class Trainer:
         return (dyn.apply_transition_fb if self.cfg.dynamics.merge_directions
                 else dyn.apply_transition)
 
+    def _takes_update(self) -> bool:
+        """Whether the coming train step ends an accumulation window
+        (optax.MultiSteps: an Adam update every grad_accum_steps steps)."""
+        k = self.grad_accum_steps
+        return k <= 1 or (self.step + 1) % k == 0
+
     def train_step(self, x, beta: float, generator=None,
                    draws: Optional[dict] = None):
         """One training step from x. `draws` may inject the main pass's
         random draws: {"v", "u", "dropout_masks"} (on a mesh: the global
-        ones). Returns (x_out, metrics)."""
+        ones); the rest are drawn from `generator` before the step.
+        Returns (x_out, metrics)."""
         if self.sharded is not None:
             xout, out = self.sharded.train_step(x, beta, generator, draws)
             self.step += 1
             return xout, self._gather_metrics(out)
-        draws = self._dp_draws(x, generator, draws, training=True)
+        d = self._step_draws("train", x, generator, draws)
+        update = self._takes_update()
+        if update:
+            self.set_lr(self._scheduled_lr())
+        xout, out = self._run("train", self._train_body, x,
+                              self._scalar(beta), d, update=update)
+        if update:
+            self.updates += 1
+        self.step += 1
+        out["beta"] = beta
+        return xout, self._gather_metrics(out)
+
+    def _train_body(self, x, beta, update: bool, generator=None, **d):
+        """A train step's device work: the transition(s), the loss, its
+        gradient, the update and the BN statistics. beta is a 0-d tensor;
+        `d` holds the step's draws (`_step_draws`), and what it lacks the
+        transitions draw inline from `generator`. This is what a CUDA
+        graph of the step captures."""
         dyn = self.dynamics
         aux_w = self.cfg.loss.aux_weight
         transition = self._transition()
         params = list(dyn.parameters())
         self.optimizer.zero_grad(set_to_none=False)
         xout, metrics = transition(x, beta, generator, training=True,
-                                   **(draws or {}))
+                                   **self._pass_draws(d))
         mc = metrics["mc_states"]
         loss = self.loss_fn.calc_loss(mc.init.x, mc.proposed.x,
                                       metrics["acc"])
         if aux_w > 0:
             # second pass from a fresh draw (trainer.py:1342-1353)
-            y = self.random_x(generator,
-                              x.shape[0] * (self.mesh.n_data if self.mesh
-                                            else 1))
-            _, maux = transition(
-                y, beta, generator, training=True,
-                **(self._dp_draws(y, generator, None, True) or {}))
+            y = d.get("aux_y")
+            if y is None:
+                y = self.random_x(generator, x.shape[0])
+            _, maux = transition(y, beta, generator, training=True,
+                                 **self._pass_draws(d, "aux_"))
             mca = maux["mc_states"]
             loss = loss + aux_w * self.loss_fn.calc_loss(
                 mca.init.x, mca.proposed.x, maux["acc"])
@@ -321,11 +461,10 @@ class Trainer:
             for g in grads:
                 torch.nan_to_num_(g)
             grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            self._optimizer_update(params, grads, grad_norm)
+            self._apply_update(params, grads, grad_norm, update)
             bn_stats = metrics.pop("bn_stats", None)
             if bn_stats:
                 self._apply_bn_ema(bn_stats)
-        self.step += 1
         loss = loss.detach()
         if self.mesh is not None:
             loss = self.mesh.all_reduce(loss.clone(), "data") \
@@ -335,7 +474,6 @@ class Trainer:
             "acc": metrics["acc"].detach(),
             "acc_mask": metrics["acc_mask"],
             "sumlogdet": metrics["sumlogdet"].detach(),
-            "beta": beta,
             "xeps": torch.sigmoid(dyn.xeps.detach()),
             "veps": torch.sigmoid(dyn.veps.detach()),
             "grad_norm": grad_norm,
@@ -354,10 +492,24 @@ class Trainer:
                 # checks only in its standalone train4dSU3 script,
                 # train4dSU3.py:157,191)
                 out["checkSU_mean"], out["checkSU_max"] = su3g.checkSU(xout)
-        return xout, self._gather_metrics(out)
+        return xout, out
 
     def _optimizer_update(self, params, grads, grad_norm):
-        """Clip, accumulate, set the lr and apply Adam."""
+        """Clip, accumulate, set the lr and apply Adam, deciding on the
+        host whether this step ends an accumulation window (the sharded
+        trainer's update)."""
+        update = self._takes_update()
+        if update:
+            self.set_lr(self._scheduled_lr())
+        self._apply_update(params, grads, grad_norm, update)
+        if update:
+            self.updates += 1
+
+    def _apply_update(self, params, grads, grad_norm, update: bool):
+        """Clip, add to the accumulation window and, when `update`, apply
+        Adam to the window's mean (to the gradient itself without
+        accumulation). The window's sums live in buffers that persist
+        across steps and are zeroed in place after each update."""
         clip = self.cfg.learning_rate.clip_norm
         if clip and clip > 0:
             # optax.clip_by_global_norm: g * clip / norm when norm >= clip
@@ -371,28 +523,35 @@ class Trainer:
                 self._acc_grads = [torch.zeros_like(g) for g in grads]
             for a, g in zip(self._acc_grads, grads):
                 a.add_(g)
-            if (self.step + 1) % k != 0:
+            if not update:
                 return
-            for p, a in zip(params, self._acc_grads):
-                p.grad = a / k
-            self._acc_grads = None
-        else:
-            for p, g in zip(params, grads):
-                p.grad = g
-        self.set_lr(self._scheduled_lr())
+            for a, g in zip(self._acc_grads, grads):
+                torch.div(a, k, out=g)
+                a.zero_()
+        for p, g in zip(params, grads):
+            p.grad = g
         self.optimizer.step()
-        self.updates += 1
 
     def accumulated_grads(self) -> Optional[list]:
         """The open accumulation window's partial gradient sums (None
         between windows), for the checkpoint."""
-        if self._acc_grads is None:
+        if self._acc_grads is None or self.step % self.grad_accum_steps == 0:
             return None
         return [g.detach().cpu() for g in self._acc_grads]
 
     def restore_accumulated_grads(self, grads: Optional[list]) -> None:
-        self._acc_grads = (None if grads is None else
-                           [g.to(self.device) for g in grads])
+        """Set the window's sums (None: an empty window), in place where
+        the buffers exist, so captured steps keep reading them."""
+        if self._acc_grads is None:
+            self._acc_grads = (None if grads is None else
+                               [g.to(self.device) for g in grads])
+            return
+        for a, g in zip(self._acc_grads, grads or [None] * len(
+                self._acc_grads)):
+            if g is None:
+                a.zero_()
+            else:
+                a.copy_(g)
 
     @torch.no_grad()
     def _apply_bn_ema(self, bn_stats: list) -> None:
@@ -438,9 +597,15 @@ class Trainer:
         if self.sharded is not None:
             xout, out = self.sharded.eval_step(x, beta, generator, draws)
             return xout, self._gather_metrics(out)
-        draws = self._dp_draws(x, generator, draws, training=False)
+        d = self._step_draws("eval", x, generator, draws)
+        xout, out = self._run("eval", self._eval_body, x, self._scalar(beta),
+                              d)
+        return xout, self._gather_metrics(out)
+
+    def _eval_body(self, x, beta, generator=None, **d):
         xout, metrics = self._transition()(x, beta, generator,
-                                           training=False, **(draws or {}))
+                                           training=False,
+                                           **self._pass_draws(d))
         mc = metrics["mc_states"]
         out = {
             "acc": metrics["acc"],
@@ -450,19 +615,25 @@ class Trainer:
         if "per_step" in metrics:
             out.update(metrics["per_step"])
         out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
-        return xout, self._gather_metrics(out)
+        return xout, out
 
     @torch.no_grad()
     def hmc_step(self, x, beta: float, eps: float, generator=None,
                  draws: Optional[dict] = None):
-        nlf = self.evals_per_step
         if self.sharded is not None:
-            xout, out = self.sharded.hmc_step(x, beta, eps, nlf, generator,
+            xout, out = self.sharded.hmc_step(x, beta, eps,
+                                              self.evals_per_step, generator,
                                               draws)
             return xout, self._gather_metrics(out)
-        draws = self._dp_draws(x, generator, draws, training=False)
+        d = self._step_draws("hmc", x, generator, draws)
+        d["eps"] = self._scalar(eps)
+        xout, out = self._run("hmc", self._hmc_body, x, self._scalar(beta), d)
+        return xout, self._gather_metrics(out)
+
+    def _hmc_body(self, x, beta, eps, generator=None, **d):
         xout, metrics = self.dynamics.apply_transition_hmc(
-            x, beta, generator, eps=eps, nleapfrog=nlf, **(draws or {}))
+            x, beta, generator, eps=eps, nleapfrog=self.evals_per_step,
+            **self._pass_draws(d))
         mc = metrics["mc_states"]
         out = {"acc": metrics["acc"], "acc_mask": metrics["acc_mask"]}
         out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
@@ -470,7 +641,107 @@ class Trainer:
             # SU(3): the engine's free action traces replace the
             # observable path's plaquette (the same number)
             out["plaqs"] = metrics["plaqs"]
-        return xout, self._gather_metrics(out)
+        return xout, out
+
+    # ------------------------------------------------------------------
+    # Compiled steps: CUDA graphs (the counterpart of the JAX package's
+    # _jit_train_step / _jit_eval_step / _jit_hmc_step)
+    # ------------------------------------------------------------------
+    def _run(self, job: str, body, x, beta, d: dict, **flags):
+        """body(x, beta, **d, **flags) -> (x_out, metrics): eagerly, or on
+        the card replayed from a CUDA graph. A graph is keyed as JAX keys
+        its traces: the job, the shapes and dtypes of its tensor inputs,
+        and what is decided on the host (the direction of a
+        single-direction transition, whether a train step applies the
+        Adam update, and the accumulation count it was traced with).
+        beta, eps, the draws and x are copied into the graph's static
+        inputs before each replay, and the lr is read from the
+        optimizer's device scalar, so no value of theirs is baked in.
+        A key's first step runs eagerly on a side stream (it warms the
+        allocator, the libraries and the optimizer state); the second is
+        captured and every later one replayed. A failed capture or replay
+        raises."""
+        tensors = {"x": x, "beta": beta}
+        for k, v in d.items():
+            if isinstance(v, torch.Tensor):
+                tensors[k] = v
+            else:
+                flags[k] = v
+        if not self.use_graphs:
+            return body(**tensors, **flags)
+        key = (job, tuple((k, tuple(t.shape), t.dtype)
+                          for k, t in tensors.items()),
+               tuple(sorted(flags.items())),
+               self.grad_accum_steps if job == "train" else 1)
+        entry = self._graphs.get(key)
+        if entry is None:
+            if key not in self._warm:
+                self._warm.add(key)
+                cur = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    res = body(**tensors, **flags)
+                cur.wait_stream(side)
+                return res
+            entry = self._capture(key, body, tensors, flags)
+        for k, t in tensors.items():
+            entry.inputs[k].copy_(t)
+        entry.graph.replay()
+        u1_force.count_replay(entry.launches)
+        entry.stats["replays"] += 1
+        xout, out = entry.outputs
+        return xout.clone(), {k: v.clone() for k, v in out.items()}
+
+    def _capture(self, key, body, tensors: dict, flags: dict):
+        """Capture body into a CUDA graph over static copies of its
+        inputs, in the trainer's one memory pool, and time the capture
+        (the body's host run, recording) and its end (instantiation)."""
+        static = {k: t.clone() for k, t in tensors.items()}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        _sync(self.device)
+        # the capture empties the allocator's cache first: so does this,
+        # so that the reserved memory grows by the pool's new segments only
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        with u1_force.captured_launches() as launches:
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, pool=self._pool):
+                outputs = body(**static, **flags)
+                t1 = time.perf_counter()
+            t2 = time.perf_counter()
+        stats = {"job": key[0], "flags": dict(key[2]),
+                 "grad_accum_steps": key[3],
+                 "shapes": {k: list(s) for k, s, _ in key[1]},
+                 "capture_s": t1 - t0, "instantiate_s": t2 - t1,
+                 "pool_bytes_added": torch.cuda.memory_reserved(self.device)
+                 - reserved, "launches": dict(launches), "replays": 0}
+        entry = _StepGraph(graph, static, outputs, dict(launches), stats)
+        self._graphs[key] = entry
+        return entry
+
+    def twin(self, graphs: bool) -> "Trainer":
+        """A second one-device Trainer of this config on this device with
+        this one's parameters, buffers, optimizer state, step counters
+        and accumulation window; `graphs` chooses how it runs its steps
+        (eager against graphed comparisons and timings)."""
+        other = Trainer(self.cfg, device=self.device, graphs=graphs)
+        other.dynamics.load_state_dict(self.dynamics.state_dict())
+        other.load_optimizer_state(copy.deepcopy(self.optimizer.state_dict()))
+        other.grad_accum_steps = self.grad_accum_steps
+        other.step, other.updates = self.step, self.updates
+        if self._acc_grads is not None:
+            other._acc_grads = [g.clone() for g in self._acc_grads]
+        return other
+
+    def graph_stats(self) -> list:
+        """Per captured step graph: its job, host-decided flags, input
+        shapes, capture and instantiation seconds, the memory its capture
+        added to the pool, the force-kernel launches it holds and its
+        replays."""
+        return [dict(e.stats) for e in self._graphs.values()]
 
     # ------------------------------------------------------------------
     # Wilson-flowed eval observables (flow_nsteps > 0, SU(3) only):

@@ -126,11 +126,16 @@ def profiled(fn, reps: int, warm: bool = True):
 
 
 def device_kernels(prof) -> dict:
-    """{kernel name: (count, device us)} of the profiled window."""
+    """{kernel name: (count, device us)} of the profiled window. The
+    ranges that `record_function` draws on the device's timeline
+    (`Optimizer.step#...` around the optimizer's kernels) are not
+    kernels and are left out: counted, they add their kernels' time
+    twice."""
     from torch.autograd import DeviceType
     return {e.key: (e.count, e.self_device_time_total)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)}
 
 
 def raw_summary(prof) -> dict:
@@ -185,11 +190,12 @@ def device_ms(fn, reps: int) -> dict:
             "kernels_per_call": sum(c for c, _ in kern.values()) / reps}
 
 
-def graph_replay(step, launches: int, replays: int = 50):
+def graph_replay(step, launches: int, replays: int = 50, uk=None):
     """Capture `launches` calls step(0), step(1), ... into one CUDA graph
     and replay it. Returns (ms per launch, the captured calls' outputs
     after a replay): the outputs let the caller hold replay against eager.
-    """
+    With `uk` (a u1_force module that counts replays) its launch counters
+    count each replay's launches, and not the capture's."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):      # warm: build, load, one-time set-up
@@ -197,10 +203,30 @@ def graph_replay(step, launches: int, replays: int = 50):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = [step(i) for i in range(launches)]
-    ms = cuda_ms(graph.replay, replays, warmup=3) / launches
+    counts = uk is not None and hasattr(uk, "captured_launches")
+    recorded = {}
+    if counts:
+        with uk.captured_launches() as recorded, torch.cuda.graph(graph):
+            outs = [step(i) for i in range(launches)]
+    else:
+        with torch.cuda.graph(graph):
+            outs = [step(i) for i in range(launches)]
+
+    def replay():
+        graph.replay()
+        if counts:
+            uk.count_replay(recorded)
+    ms = cuda_ms(replay, replays, warmup=3) / launches
     return ms, outs
+
+
+def beta_for(uk, beta: float, dtype):
+    """beta as a checkout's wrapper takes it on the hot path: a device
+    scalar where the kernel reads beta from device memory, else a
+    number."""
+    if hasattr(uk, "beta_operand"):
+        return torch.full((), beta, dtype=dtype, device="cuda")
+    return beta
 
 
 def offset_view(t: torch.Tensor) -> torch.Tensor:
@@ -218,6 +244,7 @@ class Rotation:
     def __init__(self, uk, nb, nt, nx, dtype, n, beta=4.0, seed=0):
         dev = torch.device("cuda")
         gen = torch.Generator(dev).manual_seed(seed)
+        beta = beta_for(uk, beta, dtype)
         self.uk, self.n, self.beta, self.nt, self.nx = uk, n, beta, nt, nx
         self.sets = []
         for _ in range(n):
@@ -282,11 +309,13 @@ def measure(uk, nb, nt, nx, dtype, reps=200, dev_reps=50) -> dict:
         row["events_ms"] = cuda_ms(hot.call(kind), reps, batches=5)
         row["device_ms"] = device_ms(hot.call(kind), dev_reps)[
             "device_ms_per_call"]
-        row["graph_ms"], _ = graph_replay(hot.call(kind), GRAPH_LAUNCHES)
+        row["graph_ms"], _ = graph_replay(hot.call(kind), GRAPH_LAUNCHES,
+                                          uk=uk)
         row["cold_device_ms"] = device_ms(counted(cold.call(kind)),
                                           max(dev_reps, 2 * n_cold))[
             "device_ms_per_call"]
-        row["cold_graph_ms"], _ = graph_replay(cold.call(kind), n_cold)
+        row["cold_graph_ms"], _ = graph_replay(cold.call(kind), n_cold,
+                                               uk=uk)
         out["kernels"][kind] = row
     return out
 
@@ -308,25 +337,28 @@ def host_us(fn, n: int = 3000, batches: int = 5) -> float:
 def host_split(uk, nb=2048, nt=16, nx=16) -> dict:
     """What a forward wrapper call costs on the host, and its parts."""
     x = torch.rand((nb, 2 * nt * nx), device="cuda")
-    f, a = uk.force_action(x, 4.0, nt, nx)
+    b = beta_for(uk, 4.0, x.dtype)
+    f, a = uk.force_action(x, b, nt, nx)
     g = torch.randn_like(x)
     gs = torch.randn_like(a)
     fwd = uk._FWD[x.dtype]
-    args = (x.data_ptr(), f.data_ptr(), a.data_ptr(), 4.0, nb, nt, nx,
-            x.device.index, uk._raw_stream(x))
+    args = (x.data_ptr(), f.data_ptr(), a.data_ptr(), b.data_ptr(), nb, nt,
+            nx, x.device.index, uk._raw_stream(x))
     n = nb * 2 * nt * nx
 
     def one_allocation():
         buf = x.new_empty((n + nb,))
         return buf[:n].view(x.shape), buf[n:]
     return {key: host_us(fn) for key, fn in [
-        ("fwd", lambda: uk.force_action(x, 4.0, nt, nx)),
-        ("bwd", lambda: uk.force_action_bwd(x, g, gs, f, 4.0, nt, nx)),
-        ("bwd_no_gs", lambda: uk.force_action_bwd(x, g, None, None, 4.0, nt,
+        ("fwd", lambda: uk.force_action(x, b, nt, nx)),
+        ("fwd_beta_number", lambda: uk.force_action(x, 4.0, nt, nx)),
+        ("bwd", lambda: uk.force_action_bwd(x, g, gs, f, b, nt, nx)),
+        ("bwd_no_gs", lambda: uk.force_action_bwd(x, g, None, None, b, nt,
                                                   nx)),
         ("checks", lambda: uk._check_cuda("u1_force_fwd", x, nt, nx,
                                           uk.FWD_WORDS)),
-        ("beta", lambda: uk._beta_value(4.0)),
+        ("beta_device_scalar", lambda: uk.beta_operand(b, x)),
+        ("beta_number", lambda: uk.beta_operand(4.0, x)),
         ("empty_like", lambda: torch.empty_like(x)),
         ("new_empty_nb", lambda: x.new_empty((nb,))),
         ("one_allocation_two_views", one_allocation),

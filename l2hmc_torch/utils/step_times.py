@@ -6,9 +6,14 @@ CUDA card.
 Prints one JSON line: the card, the package that was timed, and for each
 step kind the host-clock milliseconds per step (each round is the mean of
 a few steps that end in a synchronise; the line gives every round and
-their median). The steps are host-launch bound, so their times move with
-whatever else the host's cores are doing: compare two checkouts only by
-running them in turns inside one call on one card.
+their median), for the steps as the Trainer takes them on the card
+(`graphed`: replayed from CUDA graphs, where the checkout has them) and
+for an eager twin of the same state (`eager`, `Trainer.twin`), in turns
+within each round; then each graph's capture and instantiation seconds
+and the memory its capture added to the graphs' pool. Eager steps are
+host-launch bound, so their times move with whatever else the host's
+cores are doing: compare two checkouts only by running them in turns
+inside one call on one card.
 
 The script uses nothing but the package's public entry points, so it can
 time another checkout's package too: run this file with that checkout
@@ -65,19 +70,36 @@ def main(argv=None) -> int:
     xe = x[: max(2, cfg.dynamics.nchains // 4)].contiguous()
     beta = float(cfg.annealing_schedule.beta_final)
     eps = cfg.dynamics.eps_hmc
-    steps = {
-        "train": lambda: tr.train_step(x, beta, ex.generator),
-        "eval": lambda: tr.eval_step(xe, beta, ex.generator),
-        "hmc": lambda: tr.hmc_step(xe, beta, eps, ex.generator),
-    }
-    rounds = {job: [round_ms(fn, STEPS[job]) for _ in range(args.rounds)]
-              for job, fn in steps.items()}
+    trainers = {"graphed": tr}
+    if hasattr(tr, "twin"):
+        trainers["eager"] = tr.twin(graphs=False)
+
+    def steps(t):
+        return {
+            "train": lambda: t.train_step(x, beta, ex.generator),
+            "eval": lambda: t.eval_step(xe, beta, ex.generator),
+            "hmc": lambda: t.hmc_step(xe, beta, eps, ex.generator),
+        }
+    fns = {name: steps(t) for name, t in trainers.items()}
+    for f in fns.values():       # the graphs of these shapes, captured
+        for fn in f.values():
+            fn()
+            fn()
+    rounds = {name: {job: [] for job in STEPS} for name in trainers}
+    for _ in range(args.rounds):
+        for name, f in fns.items():
+            for job, fn in f.items():
+                rounds[name][job].append(round_ms(fn, STEPS[job]))
     print(json.dumps({
         "card": card, "package": l2hmc_torch.__path__[0],
         "nchains": {"train": int(x.shape[0]), "eval": int(xe.shape[0]),
                     "hmc": int(xe.shape[0])},
-        "median_ms": {job: statistics.median(r) for job, r in rounds.items()},
-        "rounds_ms": rounds}), flush=True)
+        "median_ms": {name: {job: statistics.median(r) for job, r in
+                             rr.items()} for name, rr in rounds.items()},
+        "rounds_ms": rounds,
+        "graphs": tr.graph_stats() if hasattr(tr, "graph_stats") else None,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}),
+        flush=True)
     return 0
 
 

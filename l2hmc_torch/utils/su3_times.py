@@ -27,6 +27,10 @@ holds
 The U(1) NCP x-update (the elementwise part of `Dynamics._update_x_u1`,
 its network call replaced by fixed s, t, q) is timed the same way at the
 default U(1) shape. `chip_smoke.py` calls `hot_ops` and `u1_ncp_row`.
+
+`main` also times the configuration's train step both ways, replayed from
+its CUDA graph and eagerly (an eager twin of the same state), with the
+graphs' capture and instantiation seconds and pool memory.
 """
 from __future__ import annotations
 
@@ -193,12 +197,20 @@ def main(argv=None) -> int:
     # a fixed budget: from the ordered start the stationarity criterion
     # stops at once (every proposal is rejected, the plaquette stands)
     x = tr.warmup(ex.setup(), 5.7, ex.generator, nsteps=100, exact=True)
-    tr.train_step(x, 5.7, ex.generator)
-    with counting() as counts:
+    eager = tr.twin(graphs=False)
+    for _ in range(2):           # the graph: an eager first step, a capture
         tr.train_step(x, 5.7, ex.generator)
+    with counting() as counts:   # an eager step calls every op
+        eager.train_step(x, 5.7, ex.generator)
+    step_ms = {"graphed": kt.cuda_ms(
+        lambda: tr.train_step(x, 5.7, ex.generator), 3, warmup=0),
+        "eager": kt.cuda_ms(lambda: eager.train_step(x, 5.7, ex.generator),
+                            2, warmup=0)}
     cfg = ex.cfg.dynamics
     rows = hot_ops(cfg.latvolume, cfg.nchains, tr.dynamics.real_dtype, counts)
     print(json.dumps({"card": card, "config": "8^4 x 8 float32, flowed loss",
+                      "train_step_ms": step_ms, "graphs": tr.graph_stats(),
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                       "calls_per_train_step": counts, "hot_ops": rows}),
           flush=True)
     return 0

@@ -433,6 +433,57 @@ def test_train_curve_one_row_per_step_across_a_restore(tmp_path,
         assert {"dQint_flow", "flowQ_sector_Q2"} <= set(s["se"][job])
 
 
+def test_flagship_graphed_summary():
+    """The flagship rerun through the steps replayed from CUDA graphs:
+    the eager run's committed key tree, values finite, the protocol, the
+    trained row in the flagship's band (acc 0.90-0.94, dQint 0.05-0.12,
+    improvement > 1 under both HMC protocols) and its HMC rows within
+    3 sqrt(2) SE of the JAX record (`quality.compare`)."""
+    with open(os.path.join(PORT_RECORDS,
+                           "u1_16x16_quality_summary.json")) as f:
+        want = q.key_tree(json.load(f))
+    with open(os.path.join(PORT_RECORDS,
+                           "u1_16x16_graphed_quality_summary.json")) as f:
+        s = json.load(f)
+    assert q.key_tree(s) == want
+    assert all(math.isfinite(v) for v in _numbers(s))
+    assert s["device"].startswith("NVIDIA H100") and s["commit"]
+    assert s["config"]["train_steps"] == 5000
+    assert s["config"]["eval_steps"] == 2000
+    assert 0.90 <= s["eval_stats"]["acc"] <= 0.94
+    assert 0.05 <= s["eval_stats"]["dQint"] <= 0.12
+    for p in ("hmc_reference_protocol", "hmc_tuned_baseline"):
+        assert s[p]["improvement"] > 1.0
+    with open(FLAGSHIP_RECORD) as f:
+        rows = q.compare(s, json.load(f))
+    hmc = {k: r["z"] for k, r in rows.items()
+           if ".hmc_stats." in k and r["z"] is not None}
+    assert len(hmc) == 6 and all(abs(z) <= 3.0 for z in hmc.values()), hmc
+
+
+def test_flowloss_full_protocol_summary():
+    """The 8^4 flowed-loss record at its full protocol (4 x 150 train
+    steps, 1000 warmup trajectories, 2000 flowed draws), against the
+    port's 8^4 HMC row: finite, the committed baseline's keys, and no
+    non-finite gradient entry on any logged train step."""
+    prefix = os.path.join(PORT_RECORDS, "su3_8x8_flowloss_")
+    with open(prefix + "summary.json") as f:
+        s = json.load(f)
+    with open(prefix + "train_partial.json") as f:
+        partial = json.load(f)
+    assert s["protocol"] == {"nera": 4, "nepoch": 150, "warmup": 1000,
+                             "eval_steps": 2000}
+    assert s["train"]["nsteps"] == 600 and s["eval"]["nsteps"] == 2000
+    assert all(math.isfinite(v) for v in _numbers(s))
+    assert s["device"].startswith("NVIDIA H100") and s["commit"]
+    with open(os.path.join(PORT_RECORDS,
+                           "su3_8x8_b57_rerun_quality_summary.json")) as f:
+        assert s["hmc_stats_committed_baseline"] == json.load(f)[
+            "hmc_stats"]
+    assert partial["grad_nonfinite"] and not any(partial["grad_nonfinite"])
+    assert all(g > 0 and math.isfinite(g) for g in partial["grad_norm"])
+
+
 def test_flowloss_tiny_writes_only_outdir(tmp_path, monkeypatch):
     """2^4, 2 flow steps, 1 train step: partial and final JSON land under
     outdir; nothing appears in the working directory or under records/."""

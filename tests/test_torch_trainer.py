@@ -6,7 +6,11 @@ first update is ~lr * sign(g), so the params inherit the gradients'
 ~1e-12 agreement scaled by lr / (|g| + eps)). The `record_64x64_knobs`
 case takes the U(1) 64x64 record's dynamics (nleapfrog 4, eps 0.025,
 beta 4, BN and dropout on) at 8x8 for 10 steps in lockstep, where a drift
-of a few ulps a step compounded through Adam would show."""
+of a few ulps a step compounded through Adam would show. The
+`beta_lr_change_accum` case changes beta inside and between the windows of
+grad_accum_steps=2 and the lr between them (`Trainer.set_lr` beside the
+JAX trainer's `_set_lr`): the port reads both from device scalars, as its
+CUDA graphs of the step do."""
 import json
 
 import jax
@@ -29,7 +33,8 @@ BASE = [
     "precision=float64", "steps.nera=1", "steps.nepoch=2", "steps.test=2",
 ]
 
-#: name -> (overrides, train steps, beta)
+#: name -> (overrides, train steps, beta or one beta per step[, lr set
+#: before the given steps])
 VARIANTS = {
     "default": ([], 2, 2.0),
     "clip_warmup_epsfixed": (["learning_rate.clip_norm=0.5",
@@ -40,6 +45,8 @@ VARIANTS = {
     "record_64x64_knobs": (["dynamics.latvolume=[8, 8]",
                             "dynamics.nleapfrog=4", "dynamics.eps=0.025",
                             "steps.nepoch=10"], 10, 4.0),
+    "beta_lr_change_accum": (["grad_accum_steps=2"], 4,
+                             [2.0, 2.5, 3.0, 3.0], {2: 3e-4}),
 }
 
 
@@ -72,7 +79,9 @@ def _pairs(tdyn, tree):
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_train_steps_match(variant):
-    extra, nsteps, beta = VARIANTS[variant]
+    extra, nsteps, beta, *lr_at = VARIANTS[variant]
+    betas = beta if isinstance(beta, list) else [beta] * nsteps
+    lr_at = lr_at[0] if lr_at else {}
     overrides = BASE + extra
     jtr = Trainer(get_config(overrides))
     ts, x = jtr.init_state(jax.random.PRNGKey(0))
@@ -81,11 +90,14 @@ def test_train_steps_match(variant):
                                  np.asarray(ts.masks))
     tx = to_torch(x)
     for step in range(nsteps):
+        if step in lr_at:
+            ts = jtr._set_lr(ts, lr_at[step])
+            ttr.set_lr(lr_at[step])
         key = jax.random.PRNGKey(10 + step)
         k_main = jax.random.split(key, 3)[0]
         draws = fb_draws(jtr.dynamics, x, k_main, training=True)
-        ts, x, jm = jtr.train_step(ts, x, beta, key)
-        tx, tm = ttr.train_step(tx, beta, draws=draws)
+        ts, x, jm = jtr.train_step(ts, x, betas[step], key)
+        tx, tm = ttr.train_step(tx, betas[step], draws=draws)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=1e-10)
         np.testing.assert_allclose(float(tm["grad_norm"]),

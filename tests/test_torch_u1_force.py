@@ -41,6 +41,38 @@ def test_force_action_matches_pallas(dtype, atol):
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 2e-5),
+                                        (np.float64, 1e-12)])
+def test_force_action_with_tensor_beta_matches_pallas(dtype, atol):
+    """beta as a 0-d tensor of x's dtype (how the port's steps pass it,
+    and on the card the kernel's device operand): the plain force, the
+    action and the VJP against the Pallas kernel in interpret mode and
+    its custom VJP, at the tolerances of the number-beta tests."""
+    x = _x(13, dtype)
+    beta = 3.5
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tbeta = torch.tensor(beta, dtype=tx.dtype)
+    tf, ta = tk.force_action_ad(tx, tbeta, NT, NX)
+    jf, ja = u1_kernels.force_action(jnp.asarray(x), beta, NT, NX,
+                                     interpret=True)
+    np.testing.assert_allclose(tf.detach().numpy(), np.asarray(jf),
+                               atol=atol, rtol=0)
+    rtol = 2e-5 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(ta.detach().numpy(), np.asarray(ja),
+                               rtol=rtol)
+    torch.sum(torch.sin(tf) * 1.7).backward()
+
+    def jloss(y):
+        force, _ = u1_kernels.force_action_ad(y, jnp.asarray(beta, x.dtype),
+                                              NT, NX, True)
+        return jnp.sum(jnp.sin(force) * 1.7)
+
+    g_ref = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    np.testing.assert_allclose(tx.grad.numpy(), g_ref,
+                               atol=1e-8 if dtype == np.float64 else 2e-4,
+                               rtol=0)
+
+
 def test_force_action_4d_shape():
     x = _x(1, np.float64).reshape(NB, 2, NT, NX)
     f, a = tk.force_action(torch.from_numpy(x), 2.0, NT, NX)

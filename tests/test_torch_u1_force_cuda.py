@@ -106,7 +106,59 @@ def test_cuda_autograd_skips_unused_outputs(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_beta_on_the_card_raises(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb,nt,nx", SHAPES)
+def test_cuda_kernels_read_beta_from_device_memory(cuda_device, nb, nt, nx,
+                                                   dtype):
+    """beta as a 0-d tensor on the card (how the steps pass it): the same
+    bits as beta as a number, both kernels."""
+    x = torch.from_numpy(_x(12, np.float64, nb, nt, nx)).to(
+        cuda_device, dtype)
+    b = torch.tensor(4.0, dtype=dtype, device=cuda_device)
+    f, a = tk.force_action(x, b, nt, nx)
+    fn, an = tk.force_action(x, 4.0, nt, nx)
+    assert torch.equal(f, fn) and torch.equal(a, an)
+    g = torch.randn_like(x)
+    gs = torch.randn(nb, dtype=dtype, device=cuda_device)
+    assert torch.equal(tk.force_action_bwd(x, g, gs, f, b, nt, nx),
+                       tk.force_action_bwd(x, g, gs, f, 4.0, nt, nx))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_the_beta_it_reads(cuda_device):
+    """A graph captured at beta 1 and replayed after the device scalar is
+    set to 2.5 gives the plain version at 2.5; its launches count once per
+    replay."""
+    nb, nt, nx = 257, 16, 16
+    x = torch.from_numpy(_x(13, np.float32, nb, nt, nx)).to(cuda_device)
+    g = torch.randn_like(x)
+    b = torch.tensor(1.0, device=cuda_device)
+    tk.force_action(x, b, nt, nx)            # build and load outside capture
+    tk.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with tk.captured_launches() as rec, torch.cuda.graph(graph):
+        f, a = tk.force_action(x, b, nt, nx)
+        xb = tk.force_action_bwd(x, g, None, None, b, nt, nx)
+    assert rec == {"u1_force_fwd": 1, "u1_force_bwd": 1}
+    assert tk.launch_counts() == {"u1_force_fwd": 0, "u1_force_bwd": 0}
+    b.fill_(2.5)
+    graph.replay()
+    tk.count_replay(rec)
+    fp, ap = tk.force_action_plain(x, 2.5, nt, nx)
+    bp = tk.force_action_bwd_plain(x, g, None, None, 2.5, nt, nx)
+    torch.testing.assert_close(f, fp, atol=2e-5, rtol=0)
+    torch.testing.assert_close(a, ap, atol=0, rtol=2e-5)
+    torch.testing.assert_close(xb, bp, atol=1e-4, rtol=0)
+    assert tk.launch_counts() == {"u1_force_fwd": 1, "u1_force_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_beta_wanting_a_gradient_or_on_another_device_raises(
+        cuda_device):
     x = torch.zeros((2, 32), device=cuda_device)
-    with pytest.raises(ValueError, match="synchronise"):
-        tk.force_action(x, torch.tensor(1.0, device=cuda_device), 4, 4)
+    with pytest.raises(ValueError, match="non-trainable"):
+        tk.force_action(x, torch.tensor(1.0, device=cuda_device,
+                                        requires_grad=True), 4, 4)
+    if torch.cuda.device_count() > 1:
+        with pytest.raises(ValueError, match="is on"):
+            tk.force_action(x, torch.tensor(1.0, device="cuda:1"), 4, 4)
