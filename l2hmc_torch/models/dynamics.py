@@ -64,7 +64,10 @@ from l2hmc_torch.ops import lattice_su3, lattice_u1
 from l2hmc_torch.ops import su3 as su3g
 from l2hmc_torch.ops import su3_comp as comp
 from l2hmc_torch.ops import u1 as u1g
-from l2hmc_torch.utils import mh
+from l2hmc_torch.utils import mh, spans
+
+#: the networks' span (utils/spans.py): their inputs, layers and heads
+NETWORKS = spans.span("networks")
 
 
 class State(NamedTuple):
@@ -338,6 +341,7 @@ class Dynamics(nn.Module):
         return bool(training) and self.network_config.use_batch_norm \
             and self.network_config.bn_track_running_stats
 
+    @NETWORKS
     def _call_vnet(self, vnet, x, force, training, dmask):
         """(x, F) -> (s, t, q) (dynamics.py:1142-1159).
 
@@ -359,6 +363,7 @@ class Dynamics(nn.Module):
                     collect_bn=self._collect_bn(training),
                     mean_fn=self.batch_mean)
 
+    @NETWORKS
     def _call_xnet(self, xnet, xm, v, training, dmask):
         """(m*x, v) -> (s, t, q); U(1) x rep is [cos, sin]
         (dynamics.py:1161-1185)."""

@@ -49,6 +49,7 @@ from typing import Optional
 import torch
 
 from l2hmc_torch.ops import lattice_u1 as lat
+from l2hmc_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCE = CSRC / "u1_force.cu"
@@ -242,6 +243,7 @@ def _raw_stream(x: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
+@spans.span("u1.force")
 def force_action(x: torch.Tensor, beta, nt: int, nx: int):
     """Force and action: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor."""

@@ -24,6 +24,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from l2hmc_torch.utils import spans
+
 SQRT1BY3 = math.sqrt(1.0 / 3.0)
 
 
@@ -164,6 +166,9 @@ def projectTAH(x: F3) -> F3:
     return F3(zr, zi)
 
 
+EXPM = spans.span("su3.expm")
+
+
 def expm(m: F3, order: int = 12, s: int = 2) -> F3:
     """Scaling-squaring Taylor (Horner): the reference's order-12 Taylor
     (group/su3/pytorch/utils.py:148-154) plus 2^-s scaling.
@@ -174,16 +179,19 @@ def expm(m: F3, order: int = 12, s: int = 2) -> F3:
     step, as the plain Horner form does, drops the low bits of the small
     terms: in float32 at the records' step sizes that shrank the links
     by ~2e-8 of tr(U^dag U)/3 a call, with one sign, so HMC drifted off
-    SU(3) and raised the action (an XLA-fused multiply-add rounds less)."""
-    m = scale(m, 1.0 / (2 ** s))
-    y = F3(m.re / order, m.im / order)
-    for i in range(order - 1, 0, -1):
-        p = mm(m, y)
-        y = F3((m.re + p.re) / i, (m.im + p.im) / i)
-    for _ in range(s):
-        p = mm(y, y)
-        y = F3(2.0 * y.re + p.re, 2.0 * y.im + p.im)
-    return F3(_eye3(m.re) + y.re, y.im)
+    SU(3) and raised the action (an XLA-fused multiply-add rounds less).
+    (A span inside the body, not a decorator around it: a decorator's
+    frame would hold the caller's m through the call.)"""
+    with EXPM:
+        m = scale(m, 1.0 / (2 ** s))
+        y = F3(m.re / order, m.im / order)
+        for i in range(order - 1, 0, -1):
+            p = mm(m, y)
+            y = F3((m.re + p.re) / i, (m.im + p.im) / i)
+        for _ in range(s):
+            p = mm(y, y)
+            y = F3(2.0 * y.re + p.re, 2.0 * y.im + p.im)
+        return F3(_eye3(m.re) + y.re, y.im)
 
 
 def _cmul(ar, ai, br, bi):
@@ -237,6 +245,7 @@ def projectSU(x: F3) -> F3:
     return _fix_det_phase(mm(x, rsqrtPHM3(t)))
 
 
+@spans.span("su3.reunit")
 def reunit(x: F3) -> F3:
     """Differentiable reunitarization x (x†x)^{-1/2}, det-phase-fixed,
     for NEAR-UNITARY x (spectral radius of x†x - I below 1).
@@ -490,6 +499,7 @@ def staples(x: F3, lat, nb: int, roll=None) -> F3:
     return stack_dirs(outs)
 
 
+@spans.span("su3.force_and_traces")
 def force_and_traces(x: F3, beta, lat, nb: int, roll=None):
     """(force, plaq_re_sum per chain) for the Wilson action, sharing the
     plaquette products between the staple force and the action trace.

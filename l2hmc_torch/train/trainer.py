@@ -70,10 +70,29 @@ from l2hmc_torch.ops.kernels import u1_force
 from l2hmc_torch.parallel import mesh as pmesh
 from l2hmc_torch.train.annealing import Annealer, ReduceLROnPlateau
 from l2hmc_torch.train.optim import Adam
+from l2hmc_torch.utils import spans
 from l2hmc_torch.utils.history import History, summarize_dict
 from l2hmc_torch.utils.step_timer import StepTimer
 
 log = logging.getLogger(__name__)
+
+# the step path's spans (utils/spans.py; PERF.md §3): host spans of the
+# loops and of `_run`, and the layers of the step bodies, which a graph's
+# capture attributes its device operations to
+STEP = spans.span(spans.STEP)
+DRAWS = spans.span("trainer.draws")
+RUN = spans.span("trainer.run")
+RUN_INPUTS = spans.span("trainer.run.inputs")
+RUN_REPLAY = spans.span("trainer.run.replay")
+RUN_OUTPUTS = spans.span("trainer.run.outputs")
+FLOW_HOST = spans.span("trainer.flow")
+LOOP = spans.span("trainer.loop")
+TRANSITION = spans.span("transition")
+LOSS = spans.span("loss")
+BACKWARD = spans.span("backward")
+OPTIMIZER = spans.span("optimizer")
+METRICS = spans.span("metrics")
+FLOW = spans.span("flow")
 
 BN_MOMENTUM = 0.1
 
@@ -112,6 +131,13 @@ def resolve_device(device=None) -> torch.device:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        spans.count("host_reads")
+
+
+def _read_mean(t: torch.Tensor) -> float:
+    """The mean of t on the host: a blocking read, counted."""
+    spans.count("host_reads")
+    return float(torch.mean(t))
 
 
 class _StepGraph(NamedTuple):
@@ -339,6 +365,7 @@ class Trainer:
         if not hmc and not self.cfg.dynamics.merge_directions:
             fwd = given.get("forward")
             if fwd is None:
+                spans.count("host_reads")
                 fwd = bool(torch.rand((), generator=generator,
                                       device=x.device) < 0.5)
             out["forward"] = bool(fwd)
@@ -407,7 +434,8 @@ class Trainer:
             xout, out = self.sharded.train_step(x, beta, generator, draws)
             self.step += 1
             return xout, self._gather_metrics(out)
-        d = self._step_draws("train", x, generator, draws)
+        with DRAWS:
+            d = self._step_draws("train", x, generator, draws)
         update = self._takes_update()
         if update:
             self.set_lr(self._scheduled_lr())
@@ -429,24 +457,30 @@ class Trainer:
         aux_w = self.cfg.loss.aux_weight
         transition = self._transition()
         params = list(dyn.parameters())
-        self.optimizer.zero_grad(set_to_none=False)
-        xout, metrics = transition(x, beta, generator, training=True,
-                                   **self._pass_draws(d))
+        with OPTIMIZER:
+            self.optimizer.zero_grad(set_to_none=False)
+        with TRANSITION:
+            xout, metrics = transition(x, beta, generator, training=True,
+                                       **self._pass_draws(d))
         mc = metrics["mc_states"]
-        loss = self.loss_fn.calc_loss(mc.init.x, mc.proposed.x,
-                                      metrics["acc"])
+        with LOSS:
+            loss = self.loss_fn.calc_loss(mc.init.x, mc.proposed.x,
+                                          metrics["acc"])
         if aux_w > 0:
             # second pass from a fresh draw (trainer.py:1342-1353)
             y = d.get("aux_y")
             if y is None:
                 y = self.random_x(generator, x.shape[0])
-            _, maux = transition(y, beta, generator, training=True,
-                                 **self._pass_draws(d, "aux_"))
+            with TRANSITION:
+                _, maux = transition(y, beta, generator, training=True,
+                                     **self._pass_draws(d, "aux_"))
             mca = maux["mc_states"]
-            loss = loss + aux_w * self.loss_fn.calc_loss(
-                mca.init.x, mca.proposed.x, maux["acc"])
-        loss.backward()
-        with torch.no_grad():
+            with LOSS:
+                loss = loss + aux_w * self.loss_fn.calc_loss(
+                    mca.init.x, mca.proposed.x, maux["acc"])
+        with BACKWARD:
+            loss.backward()
+        with torch.no_grad(), OPTIMIZER:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
             if self.mesh is not None:
@@ -469,23 +503,23 @@ class Trainer:
         if self.mesh is not None:
             loss = self.mesh.all_reduce(loss.clone(), "data") \
                 / self.mesh.n_data
-        out = {
-            "loss": loss,
-            "acc": metrics["acc"].detach(),
-            "acc_mask": metrics["acc_mask"],
-            "sumlogdet": metrics["sumlogdet"].detach(),
-            "xeps": torch.sigmoid(dyn.xeps.detach()),
-            "veps": torch.sigmoid(dyn.veps.detach()),
-            "grad_norm": grad_norm,
-            "grad_nonfinite": grad_nonfinite,
-        }
-        if "per_step" in metrics:
-            # per-leapfrog verbose series (dynamics.verbose=true):
-            # (2*nlf, nb) tensors; History maps them to the
-            # (chain, leapfrog, draw) dataset dims
-            out.update(metrics["per_step"])
         xout = xout.detach()
-        with torch.no_grad():
+        with torch.no_grad(), METRICS:
+            out = {
+                "loss": loss,
+                "acc": metrics["acc"].detach(),
+                "acc_mask": metrics["acc_mask"],
+                "sumlogdet": metrics["sumlogdet"].detach(),
+                "xeps": torch.sigmoid(dyn.xeps.detach()),
+                "veps": torch.sigmoid(dyn.veps.detach()),
+                "grad_norm": grad_norm,
+                "grad_nonfinite": grad_nonfinite,
+            }
+            if "per_step" in metrics:
+                # per-leapfrog verbose series (dynamics.verbose=true):
+                # (2*nlf, nb) tensors; History maps them to the
+                # (chain, leapfrog, draw) dataset dims
+                out.update(metrics["per_step"])
             out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
             if self.cfg.dynamics.group == "SU3":
                 # unitarity drift monitor in the hot loop (the reference
@@ -597,24 +631,27 @@ class Trainer:
         if self.sharded is not None:
             xout, out = self.sharded.eval_step(x, beta, generator, draws)
             return xout, self._gather_metrics(out)
-        d = self._step_draws("eval", x, generator, draws)
+        with DRAWS:
+            d = self._step_draws("eval", x, generator, draws)
         xout, out = self._run("eval", self._eval_body, x, self._scalar(beta),
                               d)
         return xout, self._gather_metrics(out)
 
     def _eval_body(self, x, beta, generator=None, **d):
-        xout, metrics = self._transition()(x, beta, generator,
-                                           training=False,
-                                           **self._pass_draws(d))
+        with TRANSITION:
+            xout, metrics = self._transition()(x, beta, generator,
+                                               training=False,
+                                               **self._pass_draws(d))
         mc = metrics["mc_states"]
-        out = {
-            "acc": metrics["acc"],
-            "acc_mask": metrics["acc_mask"],
-            "sumlogdet": metrics["sumlogdet"],
-        }
-        if "per_step" in metrics:
-            out.update(metrics["per_step"])
-        out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
+        with METRICS:
+            out = {
+                "acc": metrics["acc"],
+                "acc_mask": metrics["acc_mask"],
+                "sumlogdet": metrics["sumlogdet"],
+            }
+            if "per_step" in metrics:
+                out.update(metrics["per_step"])
+            out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
         return xout, out
 
     @torch.no_grad()
@@ -625,18 +662,21 @@ class Trainer:
                                               self.evals_per_step, generator,
                                               draws)
             return xout, self._gather_metrics(out)
-        d = self._step_draws("hmc", x, generator, draws)
+        with DRAWS:
+            d = self._step_draws("hmc", x, generator, draws)
         d["eps"] = self._scalar(eps)
         xout, out = self._run("hmc", self._hmc_body, x, self._scalar(beta), d)
         return xout, self._gather_metrics(out)
 
     def _hmc_body(self, x, beta, eps, generator=None, **d):
-        xout, metrics = self.dynamics.apply_transition_hmc(
-            x, beta, generator, eps=eps, nleapfrog=self.evals_per_step,
-            **self._pass_draws(d))
+        with TRANSITION:
+            xout, metrics = self.dynamics.apply_transition_hmc(
+                x, beta, generator, eps=eps, nleapfrog=self.evals_per_step,
+                **self._pass_draws(d))
         mc = metrics["mc_states"]
-        out = {"acc": metrics["acc"], "acc_mask": metrics["acc_mask"]}
-        out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
+        with METRICS:
+            out = {"acc": metrics["acc"], "acc_mask": metrics["acc_mask"]}
+            out.update(self.loss_fn.lattice_metrics(mc.init.x, xout))
         if "plaqs" in metrics:
             # SU(3): the engine's free action traces replace the
             # observable path's plaquette (the same number)
@@ -647,6 +687,7 @@ class Trainer:
     # Compiled steps: CUDA graphs (the counterpart of the JAX package's
     # _jit_train_step / _jit_eval_step / _jit_hmc_step)
     # ------------------------------------------------------------------
+    @RUN
     def _run(self, job: str, body, x, beta, d: dict, **flags):
         """body(x, beta, **d, **flags) -> (x_out, metrics): eagerly, or on
         the card replayed from a CUDA graph. A graph is keyed as JAX keys
@@ -685,18 +726,23 @@ class Trainer:
                 cur.wait_stream(side)
                 return res
             entry = self._capture(key, body, tensors, flags)
-        for k, t in tensors.items():
-            entry.inputs[k].copy_(t)
-        entry.graph.replay()
-        u1_force.count_replay(entry.launches)
-        entry.stats["replays"] += 1
-        xout, out = entry.outputs
-        return xout.clone(), {k: v.clone() for k, v in out.items()}
+        with RUN_INPUTS:
+            for k, t in tensors.items():
+                entry.inputs[k].copy_(t)
+        with RUN_REPLAY:
+            entry.graph.replay()
+            u1_force.count_replay(entry.launches)
+            entry.stats["replays"] += 1
+        with RUN_OUTPUTS:
+            xout, out = entry.outputs
+            return xout.clone(), {k: v.clone() for k, v in out.items()}
 
     def _capture(self, key, body, tensors: dict, flags: dict):
         """Capture body into a CUDA graph over static copies of its
         inputs, in the trainer's one memory pool, and time the capture
-        (the body's host run, recording) and its end (instantiation)."""
+        (the body's host run, recording) and its end (instantiation).
+        The spans inside the body attribute the graph's device operations
+        (`spans.capture`)."""
         static = {k: t.clone() for k, t in tensors.items()}
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -709,7 +755,8 @@ class Trainer:
         with u1_force.captured_launches() as launches:
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, pool=self._pool):
-                outputs = body(**static, **flags)
+                with spans.capture(graph) as cap:
+                    outputs = body(**static, **flags)
                 t1 = time.perf_counter()
             t2 = time.perf_counter()
         stats = {"job": key[0], "flags": dict(key[2]),
@@ -717,7 +764,8 @@ class Trainer:
                  "shapes": {k: list(s) for k, s, _ in key[1]},
                  "capture_s": t1 - t0, "instantiate_s": t2 - t1,
                  "pool_bytes_added": torch.cuda.memory_reserved(self.device)
-                 - reserved, "launches": dict(launches), "replays": 0}
+                 - reserved, "launches": dict(launches), "replays": 0,
+                 **cap.stats}
         entry = _StepGraph(graph, static, outputs, dict(launches), stats)
         self._graphs[key] = entry
         return entry
@@ -737,11 +785,15 @@ class Trainer:
         return other
 
     def graph_stats(self) -> list:
-        """Per captured step graph: its job, host-decided flags, input
-        shapes, capture and instantiation seconds, the memory its capture
-        added to the pool, the force-kernel launches it holds and its
-        replays."""
-        return [dict(e.stats) for e in self._graphs.values()]
+        """Per captured graph, the steps' and the flow's (job "flow"): its
+        job, host-decided flags, input shapes, capture and instantiation
+        seconds, its replays, its device operations (`ops`: kernel, copy
+        and fill nodes), each span's inclusive operations (`span_ops`,
+        "(none)": in no span) and their [first, last) operation ordinals
+        (`span_ranges`); a step graph also the memory its capture added
+        to the pool and the force-kernel launches it holds."""
+        return [dict(e.stats) for e in (*self._graphs.values(),
+                                        *self._flow_graphs.values())]
 
     # ------------------------------------------------------------------
     # Wilson-flowed eval observables (flow_nsteps > 0, SU(3) only):
@@ -765,6 +817,7 @@ class Trainer:
             return self._gather_metrics(self._flow_replay(x))
         return self._gather_metrics(self._flow_observables(x))
 
+    @FLOW
     def _flow_observables(self, x) -> dict:
         lat = tuple(self.cfg.dynamics.latvolume)
         nb = x.shape[0]
@@ -781,7 +834,7 @@ class Trainer:
         in a CUDA graph and replayed: the same kernels in the same order,
         without the host's launch cost (the 12-step flow of an 8^4 x 8
         draw is ~53,000 launches: 1,026 ms eager, 137 ms replayed on an
-        H100)."""
+        H100). Its graph is listed by `graph_stats` under job "flow"."""
         key = (tuple(x.shape), x.dtype, x.device)
         if key not in self._flow_graphs:
             static_x = x.clone()
@@ -791,13 +844,22 @@ class Trainer:
                 self._flow_observables(static_x)      # warm the allocator
             torch.cuda.current_stream(x.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
             with torch.cuda.graph(graph):
-                out = self._flow_observables(static_x)
-            self._flow_graphs[key] = (graph, static_x, out)
-        graph, static_x, out = self._flow_graphs[key]
-        static_x.copy_(x)
-        graph.replay()
-        return {k: v.clone() for k, v in out.items()}
+                with spans.capture(graph) as cap:
+                    out = self._flow_observables(static_x)
+                t1 = time.perf_counter()
+            t2 = time.perf_counter()
+            stats = {"job": "flow", "flags": {}, "grad_accum_steps": 1,
+                     "shapes": {"x": list(x.shape)}, "capture_s": t1 - t0,
+                     "instantiate_s": t2 - t1, "replays": 0, **cap.stats}
+            self._flow_graphs[key] = _StepGraph(graph, {"x": static_x}, out,
+                                                {}, stats)
+        entry = self._flow_graphs[key]
+        entry.inputs["x"].copy_(x)
+        entry.graph.replay()
+        entry.stats["replays"] += 1
+        return {k: v.clone() for k, v in entry.outputs.items()}
 
     # ------------------------------------------------------------------
     # Profile (JAX trainer.py:496-512)
@@ -819,9 +881,11 @@ class Trainer:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         _sync(self.device)
-        with torch_profile(activities=activities) as prof:
+        with torch_profile(activities=activities) as prof, \
+                spans.job("profile"):
             for _ in range(nsteps):
-                x, _ = self.train_step(x, beta, generator)
+                with STEP:
+                    x, _ = self.train_step(x, beta, generator)
             _sync(self.device)
         os.makedirs(outdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(outdir,
@@ -831,6 +895,7 @@ class Trainer:
     # ------------------------------------------------------------------
     # Warmup (trainer.py:1699-1744)
     # ------------------------------------------------------------------
+    @spans.job("warmup")
     def warmup(self, x, beta: float, generator=None, nsteps: int = 100,
                tol: float = 1e-5, su3_rtol: float = 2e-3,
                exact: bool = False):
@@ -851,31 +916,35 @@ class Trainer:
                   if self.cfg.dynamics.group == "U1" else None)
         window: list[float] = []
         for step in range(nsteps):
-            x, metrics = self.hmc_step(x, beta, eps, generator)
-            if (step + 1) % 10 == 0:
-                a = float(torch.mean(metrics["acc"]))
-                if a > 0.75:
-                    eps = min(eps * 1.2, 0.5)
-                elif a < 0.5:
-                    eps = max(eps / 1.5, 1e-5)
-            if exact:
-                continue
-            p = float(torch.mean(metrics["plaqs"]))
-            if pexact is not None:
-                if abs(p - pexact) < tol:
-                    break
-            else:
-                window.append(p)
-                if len(window) >= 10:
-                    m1 = float(np.mean(window[-5:]))
-                    m0 = float(np.mean(window[-10:-5]))
-                    if abs(m1 - m0) <= su3_rtol * max(1.0, abs(m1)):
-                        break
+            with STEP:
+                spans.count("steps")
+                x, metrics = self.hmc_step(x, beta, eps, generator)
+                with LOOP:
+                    if (step + 1) % 10 == 0:
+                        a = _read_mean(metrics["acc"])
+                        if a > 0.75:
+                            eps = min(eps * 1.2, 0.5)
+                        elif a < 0.5:
+                            eps = max(eps / 1.5, 1e-5)
+                    if exact:
+                        continue
+                    p = _read_mean(metrics["plaqs"])
+                    if pexact is not None:
+                        if abs(p - pexact) < tol:
+                            break
+                    else:
+                        window.append(p)
+                        if len(window) >= 10:
+                            m1 = float(np.mean(window[-5:]))
+                            m0 = float(np.mean(window[-10:-5]))
+                            if abs(m1 - m0) <= su3_rtol * max(1.0, abs(m1)):
+                                break
         return x
 
     # ------------------------------------------------------------------
     # Train loop (trainer.py:1746-1838, train_epoch :1478-1637)
     # ------------------------------------------------------------------
+    @spans.job("train")
     def train(self, x, generator=None, nera=None, nepoch=None,
               console_interval: Optional[int] = None, start_era: int = 0,
               max_eras: Optional[int] = None, era_callback=None,
@@ -916,36 +985,14 @@ class Trainer:
             _sync(self.device)
             t_era = time.perf_counter()
             for epoch in range(epochs):
-                x, metrics = self.train_step(x, beta, generator)
-                if (epoch % nlog == 0) or (epoch == epochs - 1):
-                    avgs = history.update(metrics)
-                    if self.trackers is not None:
-                        self.trackers.update_summaries(metrics, self.step,
-                                                       "train")
-                        if epoch % nprint == 0:
-                            # param + grad histograms on the (sparser)
-                            # console cadence
-                            self.trackers.log_params(self.dynamics,
-                                                     self.step)
-                    if "loss" in avgs:
-                        era_losses.append(avgs["loss"])
-                    if epoch % nprint == 0:
-                        log.info(
-                            f"era={era} epoch={epoch} "
-                            + summarize_dict(
-                                {k: avgs[k] for k in
-                                 ("loss", "acc", "dQint", "dQsin", "plaqs",
-                                  "grad_norm", "grad_nonfinite")
-                                 if k in avgs}))
-                    # stuck-chain redraw (trainer.py:1594-1600)
-                    if avgs.get("acc", 1.0) < 1e-5:
-                        stuck_counter += 1
-                        if stuck_counter >= patience:
-                            log.warning("chains stuck; redrawing x")
-                            x = self.random_x(generator)
-                            stuck_counter = 0
-                    else:
-                        stuck_counter = 0
+                with STEP:
+                    spans.count("steps")
+                    x, metrics = self.train_step(x, beta, generator)
+                    with LOOP:
+                        if (epoch % nlog == 0) or (epoch == epochs - 1):
+                            x, stuck_counter = self._log_train(
+                                metrics, x, generator, era, epoch, nprint,
+                                era_losses, stuck_counter, patience)
             _sync(self.device)
             era_elapsed = time.perf_counter() - t_era
             timer.data.extend([era_elapsed / max(epochs, 1)] * epochs)
@@ -961,6 +1008,56 @@ class Trainer:
             if era_callback is not None:
                 era_callback(era, x, float(beta))
         return x
+
+    def _log_train(self, metrics, x, generator, era, epoch, nprint,
+                   era_losses, stuck_counter, patience):
+        """A logged train step's host work: the history, the trackers, the
+        console line, the era's losses and the stuck-chain redraw
+        (trainer.py:1594-1600). Returns (x, stuck_counter)."""
+        avgs = self.histories["train"].update(metrics)
+        if self.trackers is not None:
+            self.trackers.update_summaries(metrics, self.step, "train")
+            if epoch % nprint == 0:
+                # param + grad histograms on the (sparser) console cadence
+                self.trackers.log_params(self.dynamics, self.step)
+        if "loss" in avgs:
+            era_losses.append(avgs["loss"])
+        if epoch % nprint == 0:
+            log.info(f"era={era} epoch={epoch} " + summarize_dict(
+                {k: avgs[k] for k in ("loss", "acc", "dQint", "dQsin",
+                                      "plaqs", "grad_norm",
+                                      "grad_nonfinite") if k in avgs}))
+        if avgs.get("acc", 1.0) < 1e-5:
+            stuck_counter += 1
+            if stuck_counter >= patience:
+                log.warning("chains stuck; redrawing x")
+                x = self.random_x(generator)
+                stuck_counter = 0
+        else:
+            stuck_counter = 0
+        return x, stuck_counter
+
+    def _check_draws(self, metrics, x, eps, generator, job_type, step,
+                     nchains, dynamic_step_size, stuck_counter, patience):
+        """The draw loop's host logic every check_interval draws: the
+        trackers, the stuck-chain redraw and the dynamic HMC step size
+        toward 66 % acceptance. Returns (x, eps, stuck_counter)."""
+        if self.trackers is not None:
+            self.trackers.update_summaries(metrics, step, job_type)
+        if _read_mean(metrics["acc"]) < 1e-5:
+            stuck_counter += 1
+            if stuck_counter >= patience:
+                x = self.random_x(generator, nchains)
+                stuck_counter = 0
+        else:
+            stuck_counter = 0
+        if job_type == "hmc" and dynamic_step_size:
+            if _read_mean(metrics["acc_mask"]) < 0.66:
+                eps -= eps / 10.0
+            else:
+                eps += eps / 10.0
+            eps = float(np.clip(eps, 1e-5, 1.0))
+        return x, eps, stuck_counter
 
     def controller_state(self) -> dict:
         """Host-side controller memory (ReduceLROnPlateau + Annealer)."""
@@ -1003,43 +1100,38 @@ class Trainer:
             x = self.shard(self.gather(x)[:nchains])
         eps = eps if eps is not None else self.cfg.dynamics.eps_hmc
         x = self.warmup(x, beta, generator, nsteps=20)
-        history = self.histories[job_type]
-        timer = self.timers[job_type]
-        patience, stuck_counter = 5, 0
-        # metrics stay on the device during the loop; acc is read back
-        # only every check_interval steps for the host logic
-        check_interval = 10
-        buffered: list[dict] = []
-        _sync(self.device)
-        t_loop = time.perf_counter()
-        for step in range(steps):
-            if job_type == "eval":
-                x, metrics = self.eval_step(x, beta, generator)
-            else:
-                x, metrics = self.hmc_step(x, beta, eps, generator)
-            if self._flow_enabled:
-                metrics = {**metrics, **self._flow_metrics(x)}
-            buffered.append(metrics)
-            if (step + 1) % check_interval == 0 or step == steps - 1:
-                if self.trackers is not None:
-                    self.trackers.update_summaries(metrics, step, job_type)
-                if float(torch.mean(metrics["acc"])) < 1e-5:
-                    stuck_counter += 1
-                    if stuck_counter >= patience:
-                        x = self.random_x(generator, nchains)
-                        stuck_counter = 0
-                else:
-                    stuck_counter = 0
-                # dynamic HMC step size toward 66% acceptance
-                if job_type == "hmc" and dynamic_step_size:
-                    if float(torch.mean(metrics["acc_mask"])) < 0.66:
-                        eps -= eps / 10.0
+        with spans.job(job_type):
+            history = self.histories[job_type]
+            timer = self.timers[job_type]
+            patience, stuck_counter = 5, 0
+            # metrics stay on the device during the loop; acc is read back
+            # only every check_interval steps for the host logic
+            check_interval = 10
+            buffered: list[dict] = []
+            _sync(self.device)
+            t_loop = time.perf_counter()
+            for step in range(steps):
+                with STEP:
+                    spans.count("steps")
+                    if job_type == "eval":
+                        x, metrics = self.eval_step(x, beta, generator)
                     else:
-                        eps += eps / 10.0
-                    eps = float(np.clip(eps, 1e-5, 1.0))
-        for metrics in buffered:
-            history.update(metrics)
-        _sync(self.device)
-        elapsed = time.perf_counter() - t_loop
-        timer.data.extend([elapsed / max(steps, 1)] * steps)
-        return x, {"eps": eps}
+                        x, metrics = self.hmc_step(x, beta, eps, generator)
+                    if self._flow_enabled:
+                        with FLOW_HOST:
+                            metrics = {**metrics, **self._flow_metrics(x)}
+                    with LOOP:
+                        buffered.append(metrics)
+                        if (step + 1) % check_interval == 0 \
+                                or step == steps - 1:
+                            x, eps, stuck_counter = self._check_draws(
+                                metrics, x, eps, generator, job_type, step,
+                                nchains, dynamic_step_size, stuck_counter,
+                                patience)
+            with LOOP:
+                for metrics in buffered:
+                    history.update(metrics)
+            _sync(self.device)
+            elapsed = time.perf_counter() - t_loop
+            timer.data.extend([elapsed / max(steps, 1)] * steps)
+            return x, {"eps": eps}

@@ -14,6 +14,8 @@ from typing import Any, Optional
 
 import numpy as np
 
+from l2hmc_torch.utils import spans
+
 
 def grab(x) -> np.ndarray:
     """Tensor (any device) / scalar -> numpy (reference common.py:51-72)."""
@@ -47,8 +49,11 @@ class History:
 
     def update(self, metrics: dict[str, Any]) -> dict[str, float]:
         """Append one step's metrics; returns scalar (batch-averaged)
-        values for console/logging (history.py:235-264)."""
+        values for console/logging (history.py:235-264). Each tensor
+        grabbed is one read to the host, counted as `host_reads` of the
+        current job (utils/spans.py)."""
         avgs = {}
+        reads = 0
         for key, val in metrics.items():
             if val is None or key == "mc_states":
                 continue
@@ -58,11 +63,13 @@ class History:
                 # non-array payloads riding the metrics dict (e.g. the
                 # "grads" pytree the Trainer emits for histogram logging)
                 continue
+            reads += hasattr(val, "detach")
             self.history.setdefault(key, []).append(arr)
             try:
                 avgs[key] = float(np.mean(arr))
             except (TypeError, ValueError):
                 pass
+        spans.count("host_reads", reads)
         return avgs
 
     def era_summary(self, era) -> dict[str, float]:

@@ -11,6 +11,10 @@
   generator of the same seed, and leaves the generator in the same state.
 - The optimizer: the optax-form Adam on foreach ops against
   torch.optim.Adam, and checkpoints of either restoring into it.
+- Op attribution at capture (utils/spans.py): the spans inside a captured
+  U(1) train step, SU(3) eval step and SU(3) flow partition the graph's
+  operations, nest as the step path does, and hold the stand-in graph's
+  ops recorded inside each; the flow's graph is listed by graph_stats.
 - On the card (`cuda` marker, skipped here): graphed steps bit-equal to
   eager ones across a beta, lr and eps change, one capture per key.
 
@@ -28,6 +32,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from l2hmc_torch.configs import get_config
 from l2hmc_torch.train.optim import Adam
 from l2hmc_torch.train.trainer import Trainer
+from l2hmc_torch.utils import spans
 
 torch.set_num_threads(1)
 
@@ -274,6 +279,12 @@ class _Tape(TorchDispatchMode):
                 self._into(out, func(*args, **kwargs))
 
 
+def _tape_nodes(tape):
+    """spans.graph_nodes for a _Tape: every recorded op is one device
+    operation of the graph."""
+    return (lambda: len(tape.ops)), None
+
+
 class _StandInCuda:
     """What Trainer._run and _capture use of torch.cuda, on the CPU: the
     graph is a _Tape, the streams do nothing, and a capture leaves the
@@ -320,6 +331,7 @@ def test_graph_cache_replays_equal_eager_steps(monkeypatch, name):
     graphed, eager = _trainer(name), _trainer(name)
     graphed.use_graphs = True
     monkeypatch.setattr(trainer_mod.torch, "cuda", _StandInCuda(graphed))
+    monkeypatch.setattr(spans, "graph_nodes", _tape_nodes)
     x0 = graphed.random_x(torch.Generator().manual_seed(0))
     res = {}
     for t in (graphed, eager):
@@ -362,6 +374,131 @@ def test_graph_cache_replays_equal_eager_steps(monkeypatch, name):
         if name == "u1" else set())
     assert want <= keys and any(k[0] == "train" for k in keys), keys
     assert all(s["replays"] >= 1 for s in stats)
+
+
+class _PathTape(_Tape):
+    """A _Tape that also records the span path open at each op (relative
+    to the capture in progress)."""
+
+    def __init__(self):
+        super().__init__()
+        self.paths = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        cap = spans._capture
+        self.paths.append(cap.stack[-1][1] if cap is not None and cap.stack
+                          else spans.NONE)
+        return out
+
+
+def _check_attribution(stats, tape, top, inner):
+    """span_ops partitions the graph's ops among the top-level spans and
+    "(none)"; each `inner` span lies under one of `top` and holds no more
+    than it; every path holds exactly the tape's ops recorded inside it,
+    and its ranges cover as many."""
+    ops, span_ops = stats["ops"], stats["span_ops"]
+    assert ops == len(tape.ops) > 0
+    assert sum(v for p, v in span_ops.items() if "/" not in p) == ops
+    assert {p for p in span_ops if "/" not in p} <= set(top) | {spans.NONE}
+    for path, n in span_ops.items():
+        names = path.split("/")
+        assert all(nm in inner for nm in names[1:]), path
+        if path == spans.NONE:
+            want = tape.paths.count(spans.NONE)
+        else:
+            want = sum(1 for p in tape.paths
+                       if p == path or p.startswith(path + "/"))
+            assert n == sum(hi - lo for lo, hi in stats["span_ranges"][path])
+            for lo, hi in stats["span_ranges"][path]:
+                assert all(p == path or p.startswith(path + "/")
+                           for p in tape.paths[lo:hi]), path
+        assert n == want, (path, n, want)
+        if len(names) > 1:
+            assert n <= span_ops["/".join(names[:-1])], path
+
+
+def _captured(monkeypatch, tr, job, nsteps):
+    """Run nsteps steps of `job` through the stand-in graphs (the first
+    eager, the second captured); the captured graph's stats and tape."""
+    from l2hmc_torch.train import trainer as trainer_mod
+    tr.use_graphs = True
+    monkeypatch.setattr(trainer_mod.torch, "cuda", _StandInCuda(tr))
+    monkeypatch.setattr(spans, "graph_nodes", _tape_nodes)
+    tapes = []
+
+    def new_tape():
+        tapes.append(_PathTape())
+        return tapes[-1]
+    trainer_mod.torch.cuda.CUDAGraph = new_tape
+    gen = torch.Generator().manual_seed(1)
+    x = tr.random_x(gen)
+    for _ in range(nsteps):
+        if job == "train":
+            x, _ = tr.train_step(x, 2.0, gen)
+        else:
+            x, _ = tr.eval_step(x, 5.5, gen)
+    (stats,) = [s for s in tr.graph_stats() if s["job"] == job]
+    return stats, tapes[0], x
+
+
+@pytest.mark.parametrize("name,job", [("u1", "train"),
+                                      ("su3_flowed_loss", "eval")])
+def test_capture_attributes_every_op_to_its_span(monkeypatch, name, job):
+    """A captured step's span_ops: the transition (networks, force), loss,
+    backward, optimizer and metrics spans hold the graph's ops, and each
+    holds the ops the stand-in graph recorded inside it."""
+    stats, tape, _ = _captured(monkeypatch, _trainer(name), job, 3)
+    # the captured step replays its graph too
+    assert stats["replays"] == 2
+    if job == "train":
+        top = ("transition", "loss", "backward", "optimizer", "metrics")
+    else:
+        top = ("transition", "metrics")
+    inner = ("networks", "u1.force", "su3.force_and_traces", "su3.expm",
+             "su3.reunit")
+    _check_attribution(stats, tape, top, inner)
+    span_ops = stats["span_ops"]
+    # outside the spans only views, which put nothing on the device
+    assert {str(op[0]) for op, p in zip(tape.ops, tape.paths)
+            if p == spans.NONE} <= {"aten.detach.default"}
+    assert span_ops["transition/networks"] > 0
+    if name == "u1":
+        # every leapfrog step is recomputed in the backward pass
+        assert span_ops["transition/u1.force"] > 0
+        assert span_ops["backward/networks"] > 0
+        assert span_ops["backward/u1.force"] > 0
+        assert span_ops["backward"] > span_ops["backward/networks"]
+    else:
+        for op in ("force_and_traces", "expm", "reunit"):
+            assert span_ops[f"transition/su3.{op}"] > 0
+        assert not any(p.startswith("backward") for p in span_ops)
+
+
+def test_flow_graph_is_listed_and_attributed(monkeypatch):
+    """`_flow_replay` captures the flow once per shape, lists its graph in
+    graph_stats under job "flow" with its capture, replays and span
+    operations, and its replay equals the eager flow."""
+    tr = _trainer("su3_flowed_loss")
+    tr.cfg.flow_nsteps = 1
+    _, _, x = _captured(monkeypatch, tr, "eval", 2)
+    assert not any(s["job"] == "flow" for s in tr.graph_stats())
+    y = tr.random_x(torch.Generator().manual_seed(7), x.shape[0])
+    tr._flow_replay(x)
+    out = tr._flow_replay(y)
+    (flow,) = [s for s in tr.graph_stats() if s["job"] == "flow"]
+    assert flow["replays"] == 2 and flow["shapes"] == {"x": list(x.shape)}
+    assert flow["capture_s"] > 0 and flow["instantiate_s"] >= 0
+    tape = tr._flow_graphs[(tuple(x.shape), x.dtype, x.device)].graph
+    _check_attribution(flow, tape, ("flow",),
+                       ("su3.force_and_traces", "su3.expm", "su3.reunit"))
+    assert flow["span_ops"]["flow"] == flow["ops"]
+    for op in ("force_and_traces", "expm", "reunit"):
+        assert flow["span_ops"][f"flow/su3.{op}"] > 0
+    want = tr._flow_observables(y)
+    assert set(out) == set(want)
+    for k in want:
+        assert torch.equal(out[k], want[k]), k
 
 
 def test_the_cpu_runs_eagerly():
