@@ -44,17 +44,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the same U(1) config with the conv front-end on its x networks
      (filters [8, 8], sizes [3, 3], pool [1, 2]), 3 train and 3 eval
      steps, the force kernels' launch counters read around it;
-  8. 4D SU(3), which has no hand-written kernel (its engine is eager
-     PyTorch): at float64 on the card the engine's shared-plaquette force
-     and action against the complex-matrix closed form on Haar links
-     (4^4 x 8 chains, 1e-10), `reunit`'s unitarity (1e-12) and |dH| of an
-     HMC trajectory at eps 0.01; the SU(3) defaults as they stand (4^4,
+  8. 4D SU(3), whose engine is PyTorch on the card but for one
+     hand-written kernel, the staple force and plaquette traces where no
+     gradient is wanted: at float64 on the card the engine's
+     shared-plaquette force and action against the complex-matrix closed
+     form on Haar links (4^4 x 8 chains, 1e-10), `reunit`'s unitarity
+     (1e-12) and |dH| of an HMC trajectory at eps 0.01; the force kernel
+     at the draw's shape (8^4 x 8 chains, beta a device scalar) against
+     its plain version in float32 (force 2e-5, traces 1e-6 a plaquette)
+     and float64 (1e-12), with its event, device and graph-replay times
+     beside the plain version's; the SU(3) defaults as they stand (4^4,
      8 chains, nleapfrog 4, units [16, 16], complex128) through
      `build_experiment(...).run()` for 20 train, 10 eval and 10 HMC
      steps; the 8^4 configuration at full width (8 chains, nleapfrog 4,
      units [32, 32], float32, mixed loss on the 12-step Wilson-flowed
      clover charge, 12-step flowed eval observables, beta 5.2 -> 5.7) for
-     200 warmup trajectories, 3 train, 3 eval and 3 HMC steps; the
+     200 warmup trajectories, 3 train, 3 eval and 3 HMC steps, each run
+     with the kernels' launch counters set to 0 just before and the force
+     kernel's launches required; its launches in one replayed train step
+     (the first force of the transition, at least one) and one eval draw
+     (all 2 nleapfrog + 1 + 3 flow steps of them); the
      flowed observables replayed from their CUDA graph against the eager
      flow, bit for bit, both timed; `graph_steps` on the 4^4 default's
      and the 8^4 path's trainers; the 8^4 step times, replayed and eager,
@@ -108,7 +117,8 @@ parameters, buffers and Adam state held bit for bit; one graph per key
 (no recapture for a new beta, eps or lr); both ways' step times, and each
 graph's capture and instantiation time and pool memory.
 Each result is one JSON line. The line before the last is
-{"kernels": [...]} with each kernel's launches, error, times and bound;
+{"kernels": [...]} with each kernel's launches, error, times and bound
+(the U(1) pair at the main path's shape, the SU(3) force at 8^4 x 8);
 the last is {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that holds no l2hmc_torch, it
@@ -137,10 +147,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def replaces(func: str) -> str:
-    """file:line of the TPU kernel function in the JAX package."""
-    (path,) = glob.glob(os.path.join(ROOT, "*", "ops", "pallas",
-                                     "u1_kernels.py"))
+def replaces(func: str, module: str = "pallas/u1_kernels.py") -> str:
+    """file:line of `func` in the JAX package's ops/<module> (by default
+    its TPU kernels)."""
+    (path,) = [p for p in glob.glob(os.path.join(ROOT, "*", "ops",
+                                                 *module.split("/")))
+               if not p.startswith(os.path.join(ROOT, "l2hmc_torch"))]
     with open(path) as f:
         for n, line in enumerate(f, 1):
             if line.startswith(f"def {func}("):
@@ -233,17 +245,22 @@ def su3_compare(torch) -> None:
 
 def su3_run(torch, overrides, phase, flow: bool):
     """`build_experiment(overrides, group="SU3").run()` on the card with
-    the gates of an SU(3) path. Returns the experiment."""
+    the gates of an SU(3) path, the kernels' launch counters set to 0 just
+    before the run and read just after (the SU(3) force kernel must have
+    been launched). Returns (the experiment, those launches)."""
     from l2hmc_torch.experiment import build_experiment
     from l2hmc_torch.ops import su3 as g
+    from l2hmc_torch.ops.kernels import launches as kl
     with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
         ex = build_experiment(overrides + [f"outdir={out}"], group="SU3",
                               device="cuda")
         torch.cuda.reset_peak_memory_stats()
+        kl.reset()
         t0 = time.perf_counter()
         summary = ex.run()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        launches = kl.counts()
     assert ex._x.is_cuda and ex._x.is_complex()
     hist = ex.trainer.histories["train"].get_dataset()
     assert finite(summary), summary
@@ -257,7 +274,8 @@ def su3_run(torch, overrides, phase, flow: bool):
         h = ex.trainer.histories[job].get_dataset()
         for key in ("flowQ", "flow_plaq", "flow_t2E"):
             assert (key in h) == flow, (job, key)
-    emit({"phase": phase, "seconds": seconds,
+    assert launches["su3_force_fwd"] > 0, launches
+    emit({"phase": phase, "seconds": seconds, "launches": launches,
           "dtype": str(ex._x.dtype).replace("torch.", ""),
           "lattice": list(ex.cfg.dynamics.latvolume),
           "nchains": ex.cfg.dynamics.nchains,
@@ -265,7 +283,62 @@ def su3_run(torch, overrides, phase, flow: bool):
           "checkSU_max_after_training": check,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "summary": summary})
-    return ex
+    return ex, launches
+
+
+def su3_force_phase(torch, card) -> dict:
+    """The SU(3) force kernel (ops/kernels/su3_force.py) at the draw's
+    shape, 8^4 x 8 chains, on reunitarised Haar links, beta 5.7 from a
+    device scalar, in float32 and float64: against the float64 plain
+    version as tests/test_torch_su3_force_cuda.py holds it (the force to
+    2e-5 in float32 and 1e-12 in float64, the trace sums to 1e-6 and
+    1e-12 a plaquette); then its event, device and graph-replay times
+    beside the plain version's and its bound. Returns them by dtype."""
+    from l2hmc_torch.ops import su3 as g
+    from l2hmc_torch.ops import su3_comp as comp
+    from l2hmc_torch.ops.kernels import su3_force as sk
+    from l2hmc_torch.ops.kernels import u1_force as uk
+    from l2hmc_torch.utils import kernel_times as kt
+    dev, lat, nb, beta = torch.device("cuda"), (8, 8, 8, 8), 8, 5.7
+    gen = torch.Generator(dev).manual_seed(0)
+    x64 = comp.reunit(comp.from_complex_lattice(
+        g.random((nb, 4, *lat, 3, 3), gen, torch.complex128, dev)))
+    want_f, want_tr = comp.force_and_traces_plain(x64, beta, lat, nb)
+    plaqs = 6 * math.prod(lat)
+    res = {}
+    for dtype, f_tol, tr_tol in ((torch.float32, 2e-5, 1e-6),
+                                 (torch.float64, 1e-12, 1e-12)):
+        name = str(dtype).replace("torch.", "")
+        x = comp.F3(x64.re.to(dtype).contiguous(),
+                    x64.im.to(dtype).contiguous())
+        bd = torch.full((), beta, dtype=dtype, device=dev)
+
+        def kern(i=0):
+            return sk.force_and_traces(x.re, x.im, bd, lat, nb)
+
+        def plain():
+            return comp.force_and_traces_plain(x, bd, lat, nb)
+        f_re, f_im, tr = kern()
+        torch.cuda.synchronize()
+        err = max(float((f_re.double() - want_f.re).abs().max()),
+                  float((f_im.double() - want_f.im).abs().max()))
+        err_tr = float((tr.double() - want_tr).abs().max()) / plaqs
+        plain_dev = kt.device_ms(plain, 3)
+        res[name] = {
+            "max_abs_err": err, "trace_err_per_plaquette": err_tr,
+            "ms": kt.cuda_ms(kern, 200, batches=5),
+            "plain_ms": kt.cuda_ms(plain, 20, batches=3),
+            "device_ms": kt.device_ms(kern, 50)["device_ms_per_call"],
+            "plain_device_ms": plain_dev["device_ms_per_call"],
+            "plain_kernels_per_call": plain_dev["kernels_per_call"],
+            # 36 launches a graph, as a draw's Wilson flow holds them
+            "graph_replay_ms": kt.graph_replay(kern, 36, uk=uk)[0],
+            **kt.su3_force_bound(lat, nb, dtype)}
+        emit({"phase": "su3_force_compare", "card": card,
+              "lattice": list(lat), "nchains": nb, "dtype": name,
+              "beta": "device scalar", **res[name]})
+        assert err <= f_tol and err_tr <= tr_tol, (name, res[name])
+    return res
 
 
 def su3_flow_graph(torch, tr, x, card) -> None:
@@ -440,13 +513,19 @@ def graph_steps_only(torch, card) -> None:
         torch.cuda.empty_cache()
 
 
-def su3_phases(torch, card, u1_ncp) -> None:
+def su3_phases(torch, card, u1_ncp) -> dict:
+    """The SU(3) phases (8 in the list above). Returns the force kernel's
+    numbers for the kernels line: its times and errors by dtype, and its
+    launches in the 8^4 main path's run."""
     from l2hmc_torch import train4dsu3
+    from l2hmc_torch.ops.kernels import launches as kl
     from l2hmc_torch.utils import su3_times as st
     from l2hmc_torch.utils.kernel_times import cuda_ms, profiled, raw_summary
     su3_compare(torch)
-    ex = su3_run(torch, ["steps.nera=1", "steps.nepoch=20", "steps.test=10",
-                         "save=true"], "su3_default_path", flow=False)
+    force = su3_force_phase(torch, card)
+    ex, _ = su3_run(torch, ["steps.nera=1", "steps.nepoch=20",
+                            "steps.test=10", "save=true"],
+                    "su3_default_path", flow=False)
     graph_steps(torch, card, "su3_4x4_default", ex.trainer,
                 ex._x.contiguous(), (6.0, 5.5), (0.05, 0.04), 5e-4, 2)
     del ex
@@ -454,9 +533,10 @@ def su3_phases(torch, card, u1_ncp) -> None:
     # the ordered start the plaquette stands still while every proposal
     # is rejected, which the stationarity criterion would take for
     # equilibrium; 200 self-tuned trajectories thermalize the lattice
-    ex = su3_run(torch, st.MAIN_SU3 + ["steps.nera=1", "steps.nepoch=3",
-                                       "steps.test=3", "steps.warmup=200"],
-                 "su3_main_path", flow=True)
+    ex, main_launches = su3_run(
+        torch, st.MAIN_SU3 + ["steps.nera=1", "steps.nepoch=3",
+                              "steps.test=3", "steps.warmup=200"],
+        "su3_main_path", flow=True)
     tr, cfg = ex.trainer, ex.cfg
     x = ex._x.contiguous()
     beta = float(cfg.annealing_schedule.beta_final)
@@ -477,6 +557,28 @@ def su3_phases(torch, card, u1_ncp) -> None:
         return {"train": lambda: t.train_step(x, beta, ex.generator),
                 "eval": eval_draw, "hmc": hmc_draw}
     steps = steps_of(tr)
+    # the force kernel's launches in one replayed step of each kind: in a
+    # train step, the transition's first force (at the incoming x, which
+    # carries no gradient) and the flowed loss's flow of the incoming x, 3
+    # a flow step (the flow of the proposal wants a gradient: plain); in
+    # an eval draw every force, 2 nleapfrog + 1 in the transition and 3 a
+    # flow step in its Wilson flow
+    nlf = cfg.dynamics.nleapfrog
+    per_step = {}
+    for job, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        kl.reset()
+        fn()
+        torch.cuda.synchronize()
+        per_step[job] = kl.counts()["su3_force_fwd"]
+    train_graph = [s["launches"] for s in tr.graph_stats()
+                   if s["job"] == "train"]
+    emit({"phase": "su3_force_launches_per_step", "per_step": per_step,
+          "train_graphs": train_graph})
+    assert per_step["train"] == 1 + 3 * cfg.loss.charge_flow_nsteps, \
+        per_step
+    assert per_step["eval"] == 2 * nlf + 1 + 3 * cfg.flow_nsteps, per_step
     # the path and graph_steps have run, so the graphs exist: graphed
     # steps replay; an eager twin's step (~10 s) calls every engine op,
     # which are counted alongside (the flow of a draw is replayed from its
@@ -554,6 +656,8 @@ def su3_phases(torch, card, u1_ncp) -> None:
     assert rc == 0, rc
     emit({"phase": "train4dsu3", "seconds": time.perf_counter() - t0,
           "train_steps": 5})
+    return {"by_dtype": force, "launches": main_launches["su3_force_fwd"],
+            "launches_per_step": per_step}
 
 
 def su3_algebra_phase(torch) -> None:
@@ -1200,7 +1304,7 @@ def main() -> int:
     u1_ncp = st.u1_ncp_row(tr.dynamics, nb, calls=8 * nlf)
     del ex, tr, x, xe, steps, prof
     torch.cuda.empty_cache()
-    su3_phases(torch, card, u1_ncp)
+    su3 = su3_phases(torch, card, u1_ncp)
     su3_algebra_phase(torch)
     parallel_phases(torch, uk)
     records_phase(torch, uk)
@@ -1230,6 +1334,26 @@ def main() -> int:
     rows[1].update({"with_gs_ms": t["bwd"], "with_gs_plain_ms": t["bwd_plain"],
                     "with_gs_bound_ms": with_gs["bound_ms"],
                     "with_gs_max_abs_err": err["bwd"]})
+    # the SU(3) force at the draw's shape (8^4 x 8 chains), float32 and,
+    # beside it, float64; its launches in the 8^4 main path's run
+    f32, f64 = su3["by_dtype"]["float32"], su3["by_dtype"]["float64"]
+    rows.append({
+        "name": "su3_force_fwd", "route": "cuda",
+        "source": "l2hmc_torch/csrc/su3_force.cu",
+        "replaces": "no TPU kernel: plain jnp at "
+                    + replaces("force_and_traces", "su3_comp.py"),
+        "launches": su3["launches"],
+        "launches_per_step": su3["launches_per_step"],
+        "max_abs_err": f32["max_abs_err"],
+        "trace_err_per_plaquette": f32["trace_err_per_plaquette"],
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": None, "device_ms": f32["device_ms"],
+        "plain_device_ms": f32["plain_device_ms"],
+        "graph_replay_ms": f32["graph_replay_ms"],
+        "float64": {k: f64[k] for k in (
+            "max_abs_err", "trace_err_per_plaquette", "ms", "plain_ms",
+            "bound_ms", "device_ms", "graph_replay_ms")}})
     assert all(r["launches"] > 0 for r in rows), rows
     print(card, flush=True)
     emit({"kernels": rows})

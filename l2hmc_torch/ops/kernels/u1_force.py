@@ -27,12 +27,9 @@ x's device is passed by pointer and read by the kernel when it runs, so a
 graph captured at one beta replays at whatever value that tensor holds; a
 Python number or a CPU scalar is first written into a device scalar.
 
-Each wrapper counts its kernel launches in a plain int attribute
-(`force_action.launches`, `force_action_bwd.launches`), so a run can
-show that its force evaluations went through the kernels. A capture
-launches nothing: `captured_launches()` takes the launches recorded during
-a capture off the counters and keeps them, and `count_replay` adds them
-back once per replay of that graph.
+Each wrapper counts its kernel's launches in `ops/kernels/launches.py`
+(`launch_counts()` reads this module's two); `captured_launches` and
+`count_replay` are that registry's `captured` and `count_replay`.
 """
 from __future__ import annotations
 
@@ -42,13 +39,13 @@ import os
 import shutil
 import subprocess
 import tempfile
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from l2hmc_torch.ops import lattice_u1 as lat
+from l2hmc_torch.ops.kernels import launches
 from l2hmc_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -66,6 +63,8 @@ SMEM_LIMIT = 232448 - 1024
 FWD_WORDS, BWD_WORDS = 3, 5
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+NAMES = ("u1_force_fwd", "u1_force_bwd")
+launches.register(*NAMES)
 #: the loaded library's entry points by dtype, filled by _load()
 _FWD: dict = {}
 _BWD: dict = {}
@@ -109,8 +108,8 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
-            "/usr/local/cuda and $PATH): the U(1) force kernel cannot be "
-            "built, so CUDA tensors cannot take the force path")
+            "/usr/local/cuda and $PATH): the port's CUDA kernels cannot be "
+            "built, so CUDA tensors cannot take their paths")
     return found
 
 
@@ -130,18 +129,20 @@ def library_path(csrc: Path = CSRC) -> Path:
     return BUILD_DIR / f"u1_force_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile csrc/u1_force.cu unless this source's build exists.
-    Returns (library path, compiler output); verbose adds -Xptxas -v
-    (registers, shared memory, spills per kernel) to a fresh build."""
-    path = library_path()
+def build(verbose: bool = False, source: Path = SOURCE,
+          path: Optional[Path] = None) -> tuple[Path, str]:
+    """Compile `source` (csrc/u1_force.cu) into `path` (by default this
+    source's `library_path()`) unless that build exists. Returns (library
+    path, compiler output); verbose adds -Xptxas -v (registers, shared
+    memory, spills per kernel) to a fresh build."""
+    path = library_path() if path is None else path
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
+           "-o", tmp, str(source)]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
@@ -262,7 +263,7 @@ def force_action(x: torch.Tensor, beta, nt: int, nx: int):
                        _raw_stream(x))
     if rc != 0:
         _raise_launch_error("u1_force_fwd", rc)
-    force_action.launches += 1
+    launches.add("u1_force_fwd")
     return force, act
 
 
@@ -296,49 +297,20 @@ def force_action_bwd(x: torch.Tensor, g_force: torch.Tensor,
                        x.device.index, _raw_stream(x))
     if rc != 0:
         _raise_launch_error("u1_force_bwd", rc)
-    force_action_bwd.launches += 1
+    launches.add("u1_force_bwd")
     return x_bar
 
 
-force_action.launches = 0
-force_action_bwd.launches = 0
-
-
 def launch_counts() -> dict:
-    return {"u1_force_fwd": force_action.launches,
-            "u1_force_bwd": force_action_bwd.launches}
+    return launches.counts(*NAMES)
 
 
 def reset_launch_counts() -> None:
-    force_action.launches = 0
-    force_action_bwd.launches = 0
+    launches.reset(*NAMES)
 
 
-def _add_launch_counts(counts: dict, sign: int = 1) -> None:
-    force_action.launches += sign * counts.get("u1_force_fwd", 0)
-    force_action_bwd.launches += sign * counts.get("u1_force_bwd", 0)
-
-
-@contextmanager
-def captured_launches():
-    """Around a CUDA-graph capture: yields a dict that holds, on exit,
-    the launches the capture recorded, and takes them off the counters
-    (recording is not launching). `count_replay(that dict)` then counts
-    them once per replay."""
-    before = launch_counts()
-    recorded: dict = {}
-    try:
-        yield recorded
-    finally:
-        after = launch_counts()
-        recorded.update({k: after[k] - before[k] for k in after})
-        _add_launch_counts(recorded, -1)
-
-
-def count_replay(recorded: dict) -> None:
-    """Count the launches of one replay of a graph whose capture
-    `captured_launches` recorded."""
-    _add_launch_counts(recorded)
+captured_launches = launches.captured
+count_replay = launches.count_replay
 
 
 class ForceAction(torch.autograd.Function):

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from l2hmc_torch.ops.kernels import su3_force
 from l2hmc_torch.utils import spans
 
 SQRT1BY3 = math.sqrt(1.0 / 3.0)
@@ -319,7 +320,8 @@ def random_momentum(n: int, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 def make_roll(lat: Sequence[int], nb: int):
     """Roll a per-direction field (L = V * nb) along lattice axis 0..3 via
-    reshapes around a torch.roll."""
+    reshapes around a torch.roll. The closure's `periodic` attribute,
+    (lat, nb), marks it as the engine's own periodic roll."""
     lat = tuple(int(n) for n in lat)
 
     def roll(a: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
@@ -328,6 +330,7 @@ def make_roll(lat: Sequence[int], nb: int):
         v = a.reshape(3, 3, pre, lat[axis], post)
         return torch.roll(v, shift, dims=3).reshape(a.shape)
 
+    roll.periodic = (lat, int(nb))
     return roll
 
 
@@ -499,8 +502,43 @@ def staples(x: F3, lat, nb: int, roll=None) -> F3:
     return stack_dirs(outs)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _kernel_takes(x: F3, beta, lat, nb: int, roll) -> bool:
+    """Whether `force_and_traces` goes to the CUDA kernel: the links lie
+    on the card in float32 or float64, no autograd graph can be recorded
+    through the call, and the roll is the engine's own periodic one."""
+    if not (_on_card(x.re) and _on_card(x.im)
+            and x.re.dtype in (torch.float32, torch.float64)):
+        return False
+    wants = [x.re, x.im] + ([beta] if isinstance(beta, torch.Tensor) else [])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in wants):
+        return False
+    return roll is None or getattr(roll, "periodic", None) == (
+        tuple(int(n) for n in lat), int(nb))
+
+
 @spans.span("su3.force_and_traces")
 def force_and_traces(x: F3, beta, lat, nb: int, roll=None):
+    """(force, plaq_re_sum per chain) for the Wilson action.
+
+    On the card, where no gradient can be asked of the call and `roll` is
+    None or the engine's own periodic roll (`make_roll`), one launch of
+    the hand-written kernel (ops/kernels/su3_force.py) computes both;
+    everywhere else (the CPU, a differentiated call, a foreign roll such
+    as parallel/halo.py's) `force_and_traces_plain` does, unchanged."""
+    if _kernel_takes(x, beta, lat, nb, roll):
+        re, im = x
+        if su3_force.pitch(re, im) is None:
+            re, im = re.contiguous(), im.contiguous()
+        f_re, f_im, tr = su3_force.force_and_traces(re, im, beta, lat, nb)
+        return F3(f_re, f_im), tr
+    return force_and_traces_plain(x, beta, lat, nb, roll)
+
+
+def force_and_traces_plain(x: F3, beta, lat, nb: int, roll=None):
     """(force, plaq_re_sum per chain) for the Wilson action, sharing the
     plaquette products between the staple force and the action trace.
 

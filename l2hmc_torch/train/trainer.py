@@ -66,7 +66,7 @@ from l2hmc_torch.ops import lattice_u1
 from l2hmc_torch.ops import su3 as su3g
 from l2hmc_torch.ops import su3_comp as comp
 from l2hmc_torch.ops import wilson_flow as wf
-from l2hmc_torch.ops.kernels import u1_force
+from l2hmc_torch.ops.kernels import launches as kernel_launches
 from l2hmc_torch.parallel import mesh as pmesh
 from l2hmc_torch.train.annealing import Annealer, ReduceLROnPlateau
 from l2hmc_torch.train.optim import Adam
@@ -731,7 +731,7 @@ class Trainer:
                 entry.inputs[k].copy_(t)
         with RUN_REPLAY:
             entry.graph.replay()
-            u1_force.count_replay(entry.launches)
+            kernel_launches.count_replay(entry.launches)
             entry.stats["replays"] += 1
         with RUN_OUTPUTS:
             xout, out = entry.outputs
@@ -752,7 +752,7 @@ class Trainer:
         # so that the reserved memory grows by the pool's new segments only
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
-        with u1_force.captured_launches() as launches:
+        with kernel_launches.captured() as launches:
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, pool=self._pool):
                 with spans.capture(graph) as cap:
@@ -790,8 +790,8 @@ class Trainer:
         seconds, its replays, its device operations (`ops`: kernel, copy
         and fill nodes), each span's inclusive operations (`span_ops`,
         "(none)": in no span) and their [first, last) operation ordinals
-        (`span_ranges`); a step graph also the memory its capture added
-        to the pool and the force-kernel launches it holds."""
+        (`span_ranges`), the force-kernel launches it holds; a step graph
+        also the memory its capture added to the pool."""
         return [dict(e.stats) for e in (*self._graphs.values(),
                                         *self._flow_graphs.values())]
 
@@ -844,20 +844,23 @@ class Trainer:
                 self._flow_observables(static_x)      # warm the allocator
             torch.cuda.current_stream(x.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph):
-                with spans.capture(graph) as cap:
-                    out = self._flow_observables(static_x)
-                t1 = time.perf_counter()
-            t2 = time.perf_counter()
+            with kernel_launches.captured() as launches:
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph):
+                    with spans.capture(graph) as cap:
+                        out = self._flow_observables(static_x)
+                    t1 = time.perf_counter()
+                t2 = time.perf_counter()
             stats = {"job": "flow", "flags": {}, "grad_accum_steps": 1,
                      "shapes": {"x": list(x.shape)}, "capture_s": t1 - t0,
-                     "instantiate_s": t2 - t1, "replays": 0, **cap.stats}
+                     "instantiate_s": t2 - t1, "launches": dict(launches),
+                     "replays": 0, **cap.stats}
             self._flow_graphs[key] = _StepGraph(graph, {"x": static_x}, out,
-                                                {}, stats)
+                                                dict(launches), stats)
         entry = self._flow_graphs[key]
         entry.inputs["x"].copy_(x)
         entry.graph.replay()
+        kernel_launches.count_replay(entry.launches)
         entry.stats["replays"] += 1
         return {k: v.clone() for k, v in entry.outputs.items()}
 

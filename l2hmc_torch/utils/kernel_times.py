@@ -63,6 +63,10 @@ TENSORS = {"fwd": (2, 1), "bwd": (4, 1), "bwd_no_gs": (3, 0),
            "fwd_off_alignment": (2, 1)}
 #: launches per captured graph: one trajectory's force evaluations
 GRAPH_LAUNCHES = 17
+#: operations of one complex 3x3 matrix product (27 complex multiply-adds),
+#: and the products a link of the SU(3) force kernel: six staples of two,
+#: and U A
+SU3_PRODUCT_OPS, SU3_FORCE_PRODUCTS = 216, 13
 
 
 def card_line() -> str:
@@ -86,6 +90,21 @@ def bound(kind: str, nb: int, nt: int, nx: int, dtype) -> dict:
     nbytes = bytes_moved(kind, nb, nt, nx, size)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = OPS_PER_SITE[kind] * nb * nt * nx / PEAK_OPS_PER_S[name] * 1e3
+    return {"bytes": nbytes, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def su3_force_bound(lat, nb: int, dtype) -> dict:
+    """`bound` for one su3_force_fwd launch on `nb` chains of lattice
+    `lat`: the links read and the force written once (18 values a link
+    each) and the per-chain traces written; 13 products a link."""
+    name = str(dtype).replace("torch.", "")
+    size = torch.empty((), dtype=dtype).element_size()
+    links = 4 * math.prod(lat) * nb
+    nbytes = (2 * 18 * links + nb) * size
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (SU3_FORCE_PRODUCTS * SU3_PRODUCT_OPS * links
+              / PEAK_OPS_PER_S[name] * 1e3)
     return {"bytes": nbytes, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 

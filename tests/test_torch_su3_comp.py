@@ -282,3 +282,115 @@ def test_energy_conservation_scales_with_eps_squared(fields):
         _close_f(u, tc.eye_like(u), 1e-10)
     assert dhs[2] < 0.05
     assert 3.0 < dhs[0] / dhs[1] < 5.0 and 3.0 < dhs[1] / dhs[2] < 5.0
+
+
+# ----------------------------------------------------------------------
+# Which calls go to the CUDA kernel (ops/kernels/su3_force.py)
+# ----------------------------------------------------------------------
+def _links(nb=NB, lat=LAT, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    n = 4 * int(np.prod(lat)) * nb
+    return tc.F3(torch.randn((3, 3, n), generator=g, dtype=torch.float64),
+                 torch.randn((3, 3, n), generator=g, dtype=torch.float64))
+
+
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """The kernel's entry replaced by a recorder that returns the plain
+    version's result; the list of its calls' (beta, lat, nb)."""
+    from l2hmc_torch.ops.kernels import su3_force
+    calls = []
+
+    def fake(re, im, beta, lat, nb):
+        calls.append((beta, tuple(lat), nb, su3_force.pitch(re, im)))
+        f, tr = tc.force_and_traces_plain(tc.F3(re, im), beta, lat, nb)
+        return f.re, f.im, tr
+
+    monkeypatch.setattr(su3_force, "force_and_traces", fake)
+    return calls
+
+
+def _halo_roll():
+    from l2hmc_torch.parallel.halo import make_sharded_comp_roll
+    return make_sharded_comp_roll(None, LAT, NB)
+
+
+@pytest.mark.parametrize("case", ["cpu", "x_wants_grad", "beta_wants_grad",
+                                  "halo_roll", "unmarked_roll"])
+def test_force_and_traces_keeps_the_plain_version(monkeypatch, kernel_calls,
+                                                  case):
+    """On the CPU, where a gradient is wanted, or with a roll that is not
+    the engine's own periodic one, the kernel is not taken and the plain
+    version runs unchanged."""
+    x, beta, roll = _links(), 2.3, None
+    if case != "cpu":
+        monkeypatch.setattr(tc, "_on_card", lambda t: True)
+    if case == "x_wants_grad":
+        x = tc.F3(x.re.requires_grad_(), x.im)
+    elif case == "beta_wants_grad":
+        beta = torch.tensor(2.3, dtype=torch.float64, requires_grad=True)
+    elif case == "halo_roll":
+        roll = _halo_roll()
+    elif case == "unmarked_roll":
+        own = tc.make_roll(LAT, NB)
+
+        def roll(a, shift, axis):
+            return own(a, shift, axis)
+    plain_calls = []
+    plain = tc.force_and_traces_plain
+
+    def recording_plain(*args, **kw):
+        plain_calls.append(args[4] if len(args) > 4 else kw.get("roll"))
+        if case == "halo_roll":        # no mesh here: never roll with it
+            return None
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(tc, "force_and_traces_plain", recording_plain)
+    out = tc.force_and_traces(x, beta, LAT, NB, roll)
+    assert kernel_calls == [] and plain_calls == [roll]
+    # a mark of another lattice is not the engine's roll of this one
+    assert not tc._kernel_takes(x, beta, LAT, NB, tc.make_roll(LAT, NB + 1))
+    if case == "x_wants_grad":
+        assert out[0].re.requires_grad
+    if case == "cpu":
+        want = plain(x, beta, LAT, NB)
+        _close_f(out[0], want[0], 0)
+        _close(out[1], want[1].numpy(), 0)
+
+
+@pytest.mark.parametrize("case", ["no_grad", "grad_but_no_input_wants_it",
+                                  "own_roll", "beta_device_scalar",
+                                  "complex_views", "transposed_views"])
+def test_force_and_traces_takes_the_kernel_on_the_card(monkeypatch,
+                                                       kernel_calls, case):
+    """With the device check faked: under no_grad (or where no input wants
+    a gradient, as at a transition's first force) with roll None or the
+    engine's own roll, one kernel call gives the pair. Views of one complex
+    lattice reach it as they are (pitch 2); a layout it does not read is
+    made contiguous first."""
+    monkeypatch.setattr(tc, "_on_card", lambda t: True)
+    x, beta, roll, pitch = _links(), 2.3, None, 1
+    if case == "own_roll":
+        roll = tc.make_roll(list(LAT), NB)
+    elif case == "beta_device_scalar":
+        beta = torch.tensor(2.3, dtype=torch.float64)
+    elif case == "complex_views":
+        c = torch.complex(x.re, x.im)
+        x, pitch = tc.F3(c.real, c.imag), 2
+    elif case == "transposed_views":
+        x = tc.F3(x.re.transpose(0, 1).contiguous().transpose(0, 1),
+                  x.im.transpose(0, 1).contiguous().transpose(0, 1))
+    if case == "grad_but_no_input_wants_it":
+        f, tr = tc.force_and_traces(x, beta, LAT, NB, roll)
+    else:
+        with torch.no_grad():
+            f, tr = tc.force_and_traces(x, beta, LAT, NB, roll)
+    assert kernel_calls == [(beta, LAT, NB, pitch)]
+    want = tc.force_and_traces_plain(x, beta, LAT, NB)
+    _close_f(f, want[0], 0)
+    _close(tr, want[1].numpy(), 0)
+    # the flow and HMC reach it through their own roll
+    with torch.no_grad():
+        tc.hmc_trajectory(x, tc.F3(0.1 * x.re, 0.1 * x.im), 2.3, 0.01, 1,
+                          LAT, NB)
+    assert len(kernel_calls) == 3
