@@ -11,7 +11,9 @@ steps that way unless they say eager, which is `Trainer(graphs=False)` or
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from l2hmc_torch/csrc/ (nvcc, -Xptxas -v);
+  2. build the CUDA kernels from l2hmc_torch/csrc/ (nvcc, -Xptxas -v):
+     the U(1) library and the SU(3) link kernels' (their registers and
+     spills kept for the kernels line);
   3. hold each kernel, beta read from a device scalar, against its plain
      PyTorch version on the card, at
      the main-path shape (2048 x 2x16x16, float32 and float64), a ragged
@@ -44,16 +46,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   7. the same U(1) config with the conv front-end on its x networks
      (filters [8, 8], sizes [3, 3], pool [1, 2]), 3 train and 3 eval
      steps, the force kernels' launch counters read around it;
-  8. 4D SU(3), whose engine is PyTorch on the card but for one
-     hand-written kernel, the staple force and plaquette traces where no
-     gradient is wanted: at float64 on the card the engine's
-     shared-plaquette force and action against the complex-matrix closed
-     form on Haar links (4^4 x 8 chains, 1e-10), `reunit`'s unitarity
+  8. 4D SU(3), whose engine is PyTorch on the card but for three
+     hand-written kernels, the staple force and plaquette traces and the
+     per-link expm and reunit, where no gradient is wanted: at float64
+     on the card the engine's shared-plaquette force and action against
+     the complex-matrix closed form on Haar links (4^4 x 8 chains,
+     1e-10), `reunit`'s unitarity
      (1e-12) and |dH| of an HMC trajectory at eps 0.01; the force kernel
      at the draw's shape (8^4 x 8 chains, beta a device scalar) against
      its plain version in float32 (force 2e-5, traces 1e-6 a plaquette)
      and float64 (1e-12), with its event, device and graph-replay times
-     beside the plain version's; the SU(3) defaults as they stand (4^4,
+     beside the plain version's; the link kernels at the same shape
+     against the float64 plain bodies (float32 1e-6, float64 1e-13), with
+     their times, the plain bodies' times and kernel counts on the card,
+     and ptxas's registers and spills; the SU(3) defaults as they stand (4^4,
      8 chains, nleapfrog 4, units [16, 16], complex128) through
      `build_experiment(...).run()` for 20 train, 10 eval and 10 HMC
      steps; the 8^4 configuration at full width (8 chains, nleapfrog 4,
@@ -63,7 +69,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      with the kernels' launch counters set to 0 just before and the force
      kernel's launches required; its launches in one replayed train step
      (the first force of the transition, at least one) and one eval draw
-     (all 2 nleapfrog + 1 + 3 flow steps of them); the
+     (all 2 nleapfrog + 1 + 3 flow steps of them), and the link kernels'
+     launches in both (an eval draw: 2 nleapfrog + 3 flow steps expm,
+     4 nleapfrog + flow steps reunit); the
      flowed observables replayed from their CUDA graph against the eager
      flow, bit for bit, both timed; `graph_steps` on the 4^4 default's
      and the 8^4 path's trainers; the 8^4 step times, replayed and eager,
@@ -118,7 +126,8 @@ parameters, buffers and Adam state held bit for bit; one graph per key
 graph's capture and instantiation time and pool memory.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound
-(the U(1) pair at the main path's shape, the SU(3) force at 8^4 x 8);
+(the U(1) pair at the main path's shape, the SU(3) force, expm and
+reunit at 8^4 x 8);
 the last is {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that holds no l2hmc_torch, it
@@ -341,6 +350,85 @@ def su3_force_phase(torch, card) -> dict:
     return res
 
 
+def su3_link_phase(torch, card, usage) -> dict:
+    """The SU(3) link kernels (ops/kernels/su3_link.py) at the draw's
+    shape, 8^4 x 8 chains x 4 links, in float32 and float64: `expm` at
+    order 8 and two squarings of TAH momenta times 0.1 (a flow step's size
+    of generator), `reunit` of Haar links 1e-4 off the group, each held to
+    the float64 plain body as tests/test_torch_su3_link_cuda.py holds it
+    (float32 1e-6, float64 1e-13); their event, device and graph-replay
+    times beside the plain body's device time and kernel count on the
+    card, the bound, and the registers and spills ptxas reported
+    (`usage`). Returns them by kernel and dtype."""
+    from l2hmc_torch.ops import su3 as g
+    from l2hmc_torch.ops import su3_comp as comp
+    from l2hmc_torch.ops.kernels import su3_link as lk
+    from l2hmc_torch.ops.kernels import u1_force as uk
+    from l2hmc_torch.utils import kernel_times as kt
+    dev, lat, nb = torch.device("cuda"), (8, 8, 8, 8), 8
+    n = 4 * math.prod(lat) * nb
+    gen = torch.Generator(dev).manual_seed(1)
+    on_card = comp._on_card
+    comp._on_card = lambda t: False       # the plain bodies on the card
+    try:
+        m64 = comp.scale(comp.random_momentum(n, gen, torch.float64, dev),
+                         0.1)
+        x64 = comp.reunit(comp.from_complex_lattice(
+            g.random((nb, 4, *lat, 3, 3), gen, torch.complex128, dev)))
+        x64 = comp.F3(*(t + 1e-4 * torch.randn(t.shape, generator=gen,
+                                               device=dev, dtype=t.dtype)
+                        for t in x64))
+        want = {"su3_expm_fwd": comp.expm(m64, order=8, s=2),
+                "su3_reunit_fwd": comp.reunit(x64)}
+    finally:
+        comp._on_card = on_card
+    inputs = {"su3_expm_fwd": m64, "su3_reunit_fwd": x64}
+    kernels = {"su3_expm_fwd": lambda f: lk.expm(*f, 8, 2),
+               "su3_reunit_fwd": lambda f: lk.reunit(*f)}
+    plains = {"su3_expm_fwd": lambda f: comp.expm(f, order=8, s=2),
+              "su3_reunit_fwd": comp.reunit}
+    res = {name: {} for name in kernels}
+    for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        prec = str(dtype).replace("torch.", "")
+        for name, kernel in kernels.items():
+            f = comp.F3(*(t.to(dtype).contiguous() for t in inputs[name]))
+            out = kernel(f)
+            torch.cuda.synchronize()
+            err = max(float((a.double() - b).abs().max())
+                      for a, b in zip(out, want[name]))
+            comp._on_card = lambda t: False
+            try:
+                plain_dev = kt.device_ms(lambda: plains[name](f), 3)
+                plain_ms = kt.cuda_ms(lambda: plains[name](f), 20,
+                                      batches=3)
+            finally:
+                comp._on_card = on_card
+            ptx = next((u for fn, u in usage.items() if f"{name}_kernel"
+                        in fn and ("IfE" if prec == "float32" else "IdE")
+                        in fn), {})
+            row = {
+                "max_abs_err": err,
+                "ms": kt.cuda_ms(lambda: kernel(f), 200, batches=5),
+                "plain_ms": plain_ms,
+                "device_ms": kt.device_ms(lambda: kernel(f),
+                                          50)["device_ms_per_call"],
+                "plain_device_ms": plain_dev["device_ms_per_call"],
+                "plain_kernels_per_call": plain_dev["kernels_per_call"],
+                # 36 launches a graph, as a draw's flow holds its expm's
+                "graph_replay_ms": kt.graph_replay(lambda i: kernel(f), 36,
+                                                   uk=uk)[0],
+                "registers": ptx.get("registers"),
+                "spill_stores": ptx.get("spill_stores"),
+                "spill_loads": ptx.get("spill_loads"),
+                **kt.su3_link_bound(name, lat, nb, dtype)}
+            res[name][prec] = row
+            emit({"phase": "su3_link_compare", "card": card, "kernel": name,
+                  "lattice": list(lat), "nchains": nb, "dtype": prec,
+                  **row})
+            assert err <= tol, (name, prec, row)
+    return res
+
+
 def su3_flow_graph(torch, tr, x, card) -> None:
     """The flowed eval observables as evaluate() takes them on the card
     (a CUDA graph of the whole flow, replayed) against the eager flow on
@@ -513,16 +601,17 @@ def graph_steps_only(torch, card) -> None:
         torch.cuda.empty_cache()
 
 
-def su3_phases(torch, card, u1_ncp) -> dict:
-    """The SU(3) phases (8 in the list above). Returns the force kernel's
-    numbers for the kernels line: its times and errors by dtype, and its
-    launches in the 8^4 main path's run."""
+def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
+    """The SU(3) phases (8 in the list above). Returns the SU(3) kernels'
+    numbers for the kernels line: their times and errors by dtype, and
+    their launches in the 8^4 main path's run."""
     from l2hmc_torch import train4dsu3
     from l2hmc_torch.ops.kernels import launches as kl
     from l2hmc_torch.utils import su3_times as st
     from l2hmc_torch.utils.kernel_times import cuda_ms, profiled, raw_summary
     su3_compare(torch)
     force = su3_force_phase(torch, card)
+    link = su3_link_phase(torch, card, link_usage)
     ex, _ = su3_run(torch, ["steps.nera=1", "steps.nepoch=20",
                             "steps.test=10", "save=true"],
                     "su3_default_path", flow=False)
@@ -564,7 +653,7 @@ def su3_phases(torch, card, u1_ncp) -> dict:
     # an eval draw every force, 2 nleapfrog + 1 in the transition and 3 a
     # flow step in its Wilson flow
     nlf = cfg.dynamics.nleapfrog
-    per_step = {}
+    per_step, link_per_step = {}, {}
     for job, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -572,13 +661,19 @@ def su3_phases(torch, card, u1_ncp) -> dict:
         fn()
         torch.cuda.synchronize()
         per_step[job] = kl.counts()["su3_force_fwd"]
+        link_per_step[job] = kl.counts("su3_expm_fwd", "su3_reunit_fwd")
     train_graph = [s["launches"] for s in tr.graph_stats()
                    if s["job"] == "train"]
     emit({"phase": "su3_force_launches_per_step", "per_step": per_step,
-          "train_graphs": train_graph})
+          "link_per_step": link_per_step, "train_graphs": train_graph})
     assert per_step["train"] == 1 + 3 * cfg.loss.charge_flow_nsteps, \
         per_step
     assert per_step["eval"] == 2 * nlf + 1 + 3 * cfg.flow_nsteps, per_step
+    # an eval draw: 2 nleapfrog leapfrog steps of one expm and two reunits,
+    # and 3 expm and one reunit a flow step, every one through the kernels
+    assert link_per_step["eval"] == {
+        "su3_expm_fwd": 2 * nlf + 3 * cfg.flow_nsteps,
+        "su3_reunit_fwd": 4 * nlf + cfg.flow_nsteps}, link_per_step
     # the path and graph_steps have run, so the graphs exist: graphed
     # steps replay; an eager twin's step (~10 s) calls every engine op,
     # which are counted alongside (the flow of a draw is replayed from its
@@ -657,7 +752,9 @@ def su3_phases(torch, card, u1_ncp) -> dict:
     emit({"phase": "train4dsu3", "seconds": time.perf_counter() - t0,
           "train_steps": 5})
     return {"by_dtype": force, "launches": main_launches["su3_force_fwd"],
-            "launches_per_step": per_step}
+            "launches_per_step": per_step, "link": link,
+            "link_launches": {k: main_launches[k] for k in link},
+            "link_launches_per_step": link_per_step}
 
 
 def su3_algebra_phase(torch) -> None:
@@ -1028,6 +1125,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.ops.kernels import su3_link as lk
     from l2hmc_torch.ops.kernels import u1_force as uk
     from l2hmc_torch.utils import kernel_times as kt
     from l2hmc_torch.utils import su3_times as st
@@ -1046,6 +1144,12 @@ def main() -> int:
     print(nvcc_out, file=sys.stderr, flush=True)
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    link_lib, link_out = lk.build(verbose=True)
+    print(link_out, file=sys.stderr, flush=True)
+    link_usage = kt.ptxas_usage(link_out)
+    emit({"phase": "build", "library": os.path.relpath(link_lib, ROOT),
+          "seconds": time.perf_counter() - t0, "ptxas": link_usage})
     if sys.argv[1:] == ["graph_steps"]:
         graph_steps_only(torch, card)
         print(card, flush=True)
@@ -1304,7 +1408,7 @@ def main() -> int:
     u1_ncp = st.u1_ncp_row(tr.dynamics, nb, calls=8 * nlf)
     del ex, tr, x, xe, steps, prof
     torch.cuda.empty_cache()
-    su3 = su3_phases(torch, card, u1_ncp)
+    su3 = su3_phases(torch, card, u1_ncp, link_usage)
     su3_algebra_phase(torch)
     parallel_phases(torch, uk)
     records_phase(torch, uk)
@@ -1354,6 +1458,24 @@ def main() -> int:
         "float64": {k: f64[k] for k in (
             "max_abs_err", "trace_err_per_plaquette", "ms", "plain_ms",
             "bound_ms", "device_ms", "graph_replay_ms")}})
+    # the SU(3) link maps at the draw's shape, float32 and float64; their
+    # launches in the 8^4 main path's run
+    for name, func in (("su3_expm_fwd", "expm"),
+                       ("su3_reunit_fwd", "reunit")):
+        f32, f64 = (su3["link"][name][d] for d in ("float32", "float64"))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "l2hmc_torch/csrc/su3_link.cu",
+            "replaces": "no TPU kernel: plain jnp at "
+                        + replaces(func, "su3_comp.py"),
+            "launches": su3["link_launches"][name],
+            "launches_per_step": {job: c[name] for job, c in
+                                  su3["link_launches_per_step"].items()},
+            "library_ms": None, **f32,
+            "float64": {k: f64[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "device_ms",
+                "plain_device_ms", "graph_replay_ms", "registers",
+                "spill_stores", "spill_loads")}})
     assert all(r["launches"] > 0 for r in rows), rows
     print(card, flush=True)
     emit({"kernels": rows})

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from l2hmc_torch.ops.kernels import su3_force
+from l2hmc_torch.ops.kernels import su3_force, su3_link
 from l2hmc_torch.utils import spans
 
 SQRT1BY3 = math.sqrt(1.0 / 3.0)
@@ -182,8 +182,14 @@ def expm(m: F3, order: int = 12, s: int = 2) -> F3:
     by ~2e-8 of tr(U^dag U)/3 a call, with one sign, so HMC drifted off
     SU(3) and raised the action (an XLA-fused multiply-add rounds less).
     (A span inside the body, not a decorator around it: a decorator's
-    frame would hold the caller's m through the call.)"""
+    frame would hold the caller's m through the call.)
+
+    On the card, where no gradient can be asked of the call, one launch of
+    the hand-written kernel (ops/kernels/su3_link.py) computes the same
+    recurrence; everywhere else this body does, unchanged."""
     with EXPM:
+        if _no_grad_on_card(m):
+            return F3(*su3_link.expm(m.re, m.im, order, s))
         m = scale(m, 1.0 / (2 ** s))
         y = F3(m.re / order, m.im / order)
         for i in range(order - 1, 0, -1):
@@ -260,7 +266,13 @@ def reunit(x: F3) -> F3:
     quadratically convergent for ||t - I|| < 1 and smooth at the
     degenerate point, so the backward is exact and finite everywhere in
     its domain. Three iterations reach float32 machine precision from
-    ||t - I|| <~ 0.1; the drift-correction call sites sit at ~1e-6."""
+    ||t - I|| <~ 0.1; the drift-correction call sites sit at ~1e-6.
+
+    On the card, where no gradient can be asked of the call, one launch of
+    the hand-written kernel (ops/kernels/su3_link.py) computes the same
+    map; everywhere else this body does, unchanged."""
+    if _no_grad_on_card(x):
+        return F3(*su3_link.reunit(x.re, x.im))
     t = mm(x, x, adj_a=True)
     e = _eye3(t.re)
     y = F3(e.expand(t.re.shape), torch.zeros_like(t.re))
@@ -506,15 +518,22 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _kernel_takes(x: F3, beta, lat, nb: int, roll) -> bool:
-    """Whether `force_and_traces` goes to the CUDA kernel: the links lie
-    on the card in float32 or float64, no autograd graph can be recorded
-    through the call, and the roll is the engine's own periodic one."""
+def _no_grad_on_card(x: F3, *more) -> bool:
+    """Whether a CUDA kernel of the engine may take x: it lies on the card
+    in float32 or float64, and no autograd graph can be recorded through
+    the call (neither x nor a tensor of `more` wants a gradient)."""
     if not (_on_card(x.re) and _on_card(x.im)
             and x.re.dtype in (torch.float32, torch.float64)):
         return False
-    wants = [x.re, x.im] + ([beta] if isinstance(beta, torch.Tensor) else [])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in wants):
+    wants = [t for t in (x.re, x.im, *more) if isinstance(t, torch.Tensor)]
+    return not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in wants))
+
+
+def _kernel_takes(x: F3, beta, lat, nb: int, roll) -> bool:
+    """Whether `force_and_traces` goes to the CUDA kernel: `_no_grad_on_card`
+    of the links and beta, and the roll is the engine's own periodic one."""
+    if not _no_grad_on_card(x, beta):
         return False
     return roll is None or getattr(roll, "periodic", None) == (
         tuple(int(n) for n in lat), int(nb))

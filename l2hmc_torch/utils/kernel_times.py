@@ -40,6 +40,7 @@ import argparse
 import importlib.util
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -67,6 +68,10 @@ GRAPH_LAUNCHES = 17
 #: and the products a link of the SU(3) force kernel: six staples of two,
 #: and U A
 SU3_PRODUCT_OPS, SU3_FORCE_PRODUCTS = 216, 13
+#: products a matrix of the SU(3) link kernels: expm at order 8 with two
+#: squarings (7 Taylor terms, 2 squarings), reunit (x^ x, two
+#: Newton-Schulz steps of 3, x y; the first step needs none)
+SU3_LINK_PRODUCTS = {"su3_expm_fwd": 9, "su3_reunit_fwd": 8}
 
 
 def card_line() -> str:
@@ -107,6 +112,47 @@ def su3_force_bound(lat, nb: int, dtype) -> dict:
               / PEAK_OPS_PER_S[name] * 1e3)
     return {"bytes": nbytes, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def su3_link_bound(name: str, lat, nb: int, dtype) -> dict:
+    """`bound` for one launch of an SU(3) link kernel over the 4 V nb
+    links of `nb` chains of lattice `lat`: each matrix read once and
+    written once (18 values each); the kernel's products a matrix."""
+    prec = str(dtype).replace("torch.", "")
+    size = torch.empty((), dtype=dtype).element_size()
+    links = 4 * math.prod(lat) * nb
+    nbytes = 2 * 18 * links * size
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (SU3_LINK_PRODUCTS[name] * SU3_PRODUCT_OPS * links
+              / PEAK_OPS_PER_S[prec] * 1e3)
+    return {"bytes": nbytes, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "ops_bound_ms": by_ops}
+
+
+def ptxas_usage(text: str) -> dict:
+    """{function: {"registers", "spill_stores", "spill_loads"}} from the
+    output of nvcc -Xptxas -v (mangled names)."""
+    usage: dict = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"entry function '([^']+)'|Function properties for "
+                      r"(\S+)", line)
+        if m:
+            current = m.group(1) or m.group(2)
+            usage.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[current].update(spill_stores=int(m.group(1)),
+                                  spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[current]["registers"] = int(m.group(1))
+    return usage
 
 
 def cuda_ms(fn, reps: int, warmup: int = 5, batches: int = 1) -> float:

@@ -361,14 +361,15 @@ def test_force_and_traces_keeps_the_plain_version(monkeypatch, kernel_calls,
 @pytest.mark.parametrize("case", ["no_grad", "grad_but_no_input_wants_it",
                                   "own_roll", "beta_device_scalar",
                                   "complex_views", "transposed_views"])
-def test_force_and_traces_takes_the_kernel_on_the_card(monkeypatch,
+def test_force_and_traces_takes_the_kernel_on_the_card(link_kernels,
                                                        kernel_calls, case):
     """With the device check faked: under no_grad (or where no input wants
     a gradient, as at a transition's first force) with roll None or the
     engine's own roll, one kernel call gives the pair. Views of one complex
     lattice reach it as they are (pitch 2); a layout it does not read is
-    made contiguous first."""
-    monkeypatch.setattr(tc, "_on_card", lambda t: True)
+    made contiguous first. (HMC's link update takes the faked expm
+    kernel.)"""
+    link_kernels.card()
     x, beta, roll, pitch = _links(), 2.3, None, 1
     if case == "own_roll":
         roll = tc.make_roll(list(LAT), NB)
@@ -394,3 +395,164 @@ def test_force_and_traces_takes_the_kernel_on_the_card(monkeypatch,
         tc.hmc_trajectory(x, tc.F3(0.1 * x.re, 0.1 * x.im), 2.3, 0.01, 1,
                           LAT, NB)
     assert len(kernel_calls) == 3
+    assert link_kernels.names() == ["expm"]
+
+
+class _LinkKernels:
+    """su3_link's two entries replaced by recorders that return the plain
+    body's result (run with the device check off); `calls` lists each
+    call's (name, extra arguments, strides of re); `card()` fakes the
+    device check."""
+
+    def __init__(self, monkeypatch):
+        from l2hmc_torch.ops.kernels import su3_link
+        self.calls = []
+        self._monkeypatch = monkeypatch
+        self._plain = False
+        for name, fn in (("expm", tc.expm), ("reunit", tc.reunit)):
+            monkeypatch.setattr(su3_link, name, self._recorder(name, fn))
+
+    def _recorder(self, name, fn):
+        def kernel(re, im, *args):
+            self.calls.append((name, args, re.stride()))
+            self._plain = True
+            try:
+                out = fn(tc.F3(re, im), *args)
+            finally:
+                self._plain = False
+            return out.re.contiguous(), out.im.contiguous()
+        return kernel
+
+    def card(self):
+        self._monkeypatch.setattr(tc, "_on_card",
+                                  lambda t: not self._plain)
+
+    def names(self):
+        return [c[0] for c in self.calls]
+
+
+@pytest.fixture
+def link_kernels(monkeypatch):
+    return _LinkKernels(monkeypatch)
+
+
+def _link_input(fn):
+    """Momenta-sized entries for expm, near-unitary-sized for reunit (the
+    maps are polynomials: any finite input is in their domain)."""
+    x = _links()
+    return tc.scale(x, 0.1) if fn == "expm" else x
+
+
+def _link_call(fn, x):
+    if fn == "expm":
+        return tc.expm(x, order=8, s=2)
+    return tc.reunit(x)
+
+
+@pytest.mark.parametrize("fn", ["expm", "reunit"])
+@pytest.mark.parametrize("case", ["cpu", "cpu_no_grad", "re_wants_grad",
+                                  "im_wants_grad"])
+def test_link_maps_keep_the_plain_body(link_kernels, fn, case):
+    """On the CPU, and on the card where an input wants a gradient, expm
+    and reunit run their plain bodies: no kernel call, the same result,
+    and the gradient reaches the input."""
+    x = _link_input(fn)
+    want = _link_call(fn, x)
+    if case != "cpu" and case != "cpu_no_grad":
+        link_kernels.card()
+        x = tc.F3(x.re.clone().requires_grad_(case == "re_wants_grad"),
+                  x.im.clone().requires_grad_(case == "im_wants_grad"))
+    if case == "cpu_no_grad":
+        with torch.no_grad():
+            out = _link_call(fn, x)
+    else:
+        out = _link_call(fn, x)
+    assert link_kernels.calls == []
+    assert torch.equal(out.re, want.re) and torch.equal(out.im, want.im)
+    if case.endswith("wants_grad"):
+        (out.re.sum() + out.im.sum()).backward()
+        wanted = x.re if case == "re_wants_grad" else x.im
+        assert wanted.grad is not None and bool(wanted.grad.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("fn", ["expm", "reunit"])
+@pytest.mark.parametrize("case", ["no_grad", "grad_but_no_input_wants_it",
+                                  "no_grad_over_an_input_that_wants_it",
+                                  "complex_views", "transposed_views"])
+def test_link_maps_take_the_kernel_on_the_card(link_kernels, fn, case):
+    """With the device check faked: under no_grad, or where no input wants
+    a gradient, one kernel call a call gives the plain body's result.
+    Views of one complex lattice and transposed views reach the kernel at
+    their strides (no copy)."""
+    x = _link_input(fn)
+    n = x.re.shape[2]
+    want = _link_call(fn, x)
+    link_kernels.card()
+    strides = (3 * n, n, 1)
+    if case == "no_grad_over_an_input_that_wants_it":
+        x = tc.F3(x.re.clone().requires_grad_(), x.im)
+    elif case == "complex_views":
+        c = torch.complex(x.re, x.im)
+        x, strides = tc.F3(c.real, c.imag), (6 * n, 2 * n, 2)
+    elif case == "transposed_views":
+        x = tc.F3(*(t.transpose(0, 1).contiguous().transpose(0, 1)
+                    for t in x))
+        strides = (n, 3 * n, 1)
+    if case == "grad_but_no_input_wants_it":
+        out = _link_call(fn, x)
+    else:
+        with torch.no_grad():
+            out = _link_call(fn, x)
+    extra = (8, 2) if fn == "expm" else ()
+    assert link_kernels.calls == [(fn, extra, strides)]
+    assert not out.re.requires_grad
+    assert torch.equal(out.re, want.re) and torch.equal(out.im, want.im)
+
+
+def test_flow_step_takes_the_link_kernels_on_the_card(link_kernels,
+                                                      kernel_calls):
+    """A Wilson-flow step under no_grad with the device check faked: 3
+    force, 3 expm (order 8, s 2) and 1 reunit kernel calls, and the plain
+    step's result."""
+    from l2hmc_torch.ops import wilson_flow as wf
+    g = torch.Generator().manual_seed(4)
+    x = tc.reunit(tc.from_complex_lattice(
+        su3g.random((NB, 4, *LAT, 3, 3), g, C128, "cpu")))
+    want = wf.flow_step(x, 0.1, LAT, NB)
+    link_kernels.card()
+    with torch.no_grad():
+        out = wf.flow_step(x, 0.1, LAT, NB)
+    assert link_kernels.calls == [("expm", (8, 2), (3 * x.re.shape[2],
+                                                    x.re.shape[2], 1))] * 3 \
+        + [("reunit", (), (3 * x.re.shape[2], x.re.shape[2], 1))]
+    assert len(kernel_calls) == 3
+    for a, b in ((out[0].re, want[0].re), (out[0].im, want[0].im),
+                 (out[1], want[1])):
+        assert torch.equal(a, b)
+
+
+def test_su3_leapfrog_step_takes_the_link_kernels_on_the_card(
+        link_kernels, kernel_calls):
+    """One SU(3) leapfrog step of the dynamics (a single-direction
+    transition of one step) under no_grad with the device check faked: 1
+    expm and 2 reunit kernel calls (the second x half-update reuses the
+    first's drift), 2 force kernel calls, and the plain transition's
+    result."""
+    from l2hmc_torch.configs import get_config
+    from l2hmc_torch.models.dynamics import State
+    from l2hmc_torch.train.trainer import Trainer
+    cfg = get_config(["dynamics.nchains=2", "dynamics.latvolume=[2, 2, 2, 2]",
+                      "dynamics.nleapfrog=1", "network.units=[4]",
+                      "precision=float64", "seed=5"], group="SU3")
+    dyn = Trainer(cfg, device="cpu").dynamics
+    g = torch.Generator().manual_seed(2)
+    x = dyn.random_x(g)
+    state = State(x, dyn.random_v(x, g), 5.7)
+    with torch.no_grad():
+        want, want_sld = dyn.transition_kernel(state, True)
+        link_kernels.card()
+        out, sld = dyn.transition_kernel(state, True)
+    assert link_kernels.names() == ["expm", "reunit", "reunit"]
+    assert len(kernel_calls) == 2
+    assert torch.equal(out.x, want.x) and torch.equal(out.v, want.v)
+    assert torch.equal(sld, want_sld)
