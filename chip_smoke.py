@@ -72,8 +72,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (all 2 nleapfrog + 1 + 3 flow steps of them), and the link kernels'
      launches in both (an eval draw: 2 nleapfrog + 3 flow steps expm,
      4 nleapfrog + flow steps reunit); the
-     flowed observables replayed from their CUDA graph against the eager
-     flow, bit for bit, both timed; `graph_steps` on the 4^4 default's
+     flowed observables replayed from their CUDA graph (one of the
+     Trainer's graphs) against the eager flow and an eager twin's, bit
+     for bit, graph and eager flow timed; `graph_steps` on the 4^4 default's
      and the 8^4 path's trainers; the 8^4 step times, replayed and eager,
      a profile of 2 replayed train steps (kernels per step, busy share,
      top device and host ops, peak memory), the hot ops' times beside
@@ -306,7 +307,6 @@ def su3_force_phase(torch, card) -> dict:
     from l2hmc_torch.ops import su3 as g
     from l2hmc_torch.ops import su3_comp as comp
     from l2hmc_torch.ops.kernels import su3_force as sk
-    from l2hmc_torch.ops.kernels import u1_force as uk
     from l2hmc_torch.utils import kernel_times as kt
     dev, lat, nb, beta = torch.device("cuda"), (8, 8, 8, 8), 8, 5.7
     gen = torch.Generator(dev).manual_seed(0)
@@ -341,7 +341,7 @@ def su3_force_phase(torch, card) -> dict:
             "plain_device_ms": plain_dev["device_ms_per_call"],
             "plain_kernels_per_call": plain_dev["kernels_per_call"],
             # 36 launches a graph, as a draw's Wilson flow holds them
-            "graph_replay_ms": kt.graph_replay(kern, 36, uk=uk)[0],
+            "graph_replay_ms": kt.graph_replay(kern, 36)[0],
             **kt.su3_force_bound(lat, nb, dtype)}
         emit({"phase": "su3_force_compare", "card": card,
               "lattice": list(lat), "nchains": nb, "dtype": name,
@@ -363,7 +363,6 @@ def su3_link_phase(torch, card, usage) -> dict:
     from l2hmc_torch.ops import su3 as g
     from l2hmc_torch.ops import su3_comp as comp
     from l2hmc_torch.ops.kernels import su3_link as lk
-    from l2hmc_torch.ops.kernels import u1_force as uk
     from l2hmc_torch.utils import kernel_times as kt
     dev, lat, nb = torch.device("cuda"), (8, 8, 8, 8), 8
     n = 4 * math.prod(lat) * nb
@@ -415,8 +414,8 @@ def su3_link_phase(torch, card, usage) -> dict:
                 "plain_device_ms": plain_dev["device_ms_per_call"],
                 "plain_kernels_per_call": plain_dev["kernels_per_call"],
                 # 36 launches a graph, as a draw's flow holds its expm's
-                "graph_replay_ms": kt.graph_replay(lambda i: kernel(f), 36,
-                                                   uk=uk)[0],
+                "graph_replay_ms": kt.graph_replay(lambda i: kernel(f),
+                                                   36)[0],
                 "registers": ptx.get("registers"),
                 "spill_stores": ptx.get("spill_stores"),
                 "spill_loads": ptx.get("spill_loads"),
@@ -431,19 +430,29 @@ def su3_link_phase(torch, card, usage) -> dict:
 
 def su3_flow_graph(torch, tr, x, card) -> None:
     """The flowed eval observables as evaluate() takes them on the card
-    (a CUDA graph of the whole flow, replayed) against the eager flow on
-    the same draw: bit for bit equal; both timed."""
+    (`Trainer._flow_metrics`: a CUDA graph of the whole flow, replayed,
+    after a shape's first, eager draw) against the eager flow body and an
+    eager twin's flow on the same draw: bit for bit equal; graph and body
+    timed."""
     from l2hmc_torch.utils.kernel_times import cuda_ms
-    graph = tr._flow_replay(x)
+    tr._flow_metrics(x)           # eager where the shape is new
+    graph = tr._flow_metrics(x)
     eager = tr._flow_observables(x)
+    twin = tr.twin(graphs=False)._flow_metrics(x)
     torch.cuda.synchronize()
     equal = {k: torch.equal(graph[k], eager[k]) for k in eager}
-    ms = {"graph": cuda_ms(lambda: tr._flow_replay(x), 5, warmup=1),
+    equal_twin = {k: torch.equal(graph[k], twin[k]) for k in eager}
+    (stats,) = [s for s in tr.graph_stats() if s["job"] == "flow"
+                and s["shapes"]["x"] == list(x.shape)]
+    ms = {"graph": cuda_ms(lambda: tr._flow_metrics(x), 5, warmup=1),
           "eager": cuda_ms(lambda: tr._flow_observables(x), 3, warmup=1)}
     emit({"phase": "su3_flow_graph", "card": card, "nchains": x.shape[0],
           "flow_steps": tr.cfg.flow_nsteps, "equal_to_eager": equal,
-          "ms": ms})
-    assert all(equal.values()), equal
+          "equal_to_eager_twin": equal_twin,
+          "pool_bytes_added": stats["pool_bytes_added"],
+          "replays": stats["replays"], "ms": ms})
+    assert all(equal.values()) and all(equal_twin.values()), (equal,
+                                                              equal_twin)
 
 
 def _step_kind(t, before) -> str:
@@ -676,13 +685,13 @@ def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
         "su3_reunit_fwd": 4 * nlf + cfg.flow_nsteps}, link_per_step
     # the path and graph_steps have run, so the graphs exist: graphed
     # steps replay; an eager twin's step (~10 s) calls every engine op,
-    # which are counted alongside (the flow of a draw is replayed from its
-    # own graph either way)
+    # which are counted alongside (an eager twin's draw runs its flow
+    # eagerly too)
     eager_tr = tr.twin(graphs=False)
     eager_steps = steps_of(eager_tr)
     with st.counting() as counts:
         eager_ms = {"train": cuda_ms(eager_steps["train"], 1, warmup=0)}
-    # (the twin's first draw captures its own flow graph: not timed)
+    # (the twin's first draw warms its allocator: not timed)
     eager_ms.update({job: cuda_ms(eager_steps[job], 2, warmup=1)
                      for job in ("eval", "hmc")})
     step_ms = {job: cuda_ms(steps[job], 3, warmup=1)
@@ -1125,6 +1134,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.ops.kernels import launches as kl
     from l2hmc_torch.ops.kernels import su3_link as lk
     from l2hmc_torch.ops.kernels import u1_force as uk
     from l2hmc_torch.utils import kernel_times as kt
@@ -1140,12 +1150,12 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    lib, nvcc_out = uk.build(verbose=True)
+    lib, nvcc_out = uk.LIB.build(verbose=True)
     print(nvcc_out, file=sys.stderr, flush=True)
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    link_lib, link_out = lk.build(verbose=True)
+    link_lib, link_out = lk.LIB.build(verbose=True)
     print(link_out, file=sys.stderr, flush=True)
     link_usage = kt.ptxas_usage(link_out)
     emit({"phase": "build", "library": os.path.relpath(link_lib, ROOT),
@@ -1297,17 +1307,17 @@ def main() -> int:
     bk0 = calls["bwd_no_gs"]()
     replay_ms = {}
     for key, eager in [("fwd", (fk, ak)), ("bwd_no_gs", (bk0,))]:
-        replay_ms[key], outs = kt.graph_replay(calls[key], n_graph, uk=uk)
+        replay_ms[key], outs = kt.graph_replay(calls[key], n_graph)
         torch.cuda.synchronize()
         for out in outs:
             out = out if isinstance(out, tuple) else (out,)
             assert all(torch.equal(o, e) for o, e in zip(out, eager)), key
     graph = torch.cuda.CUDAGraph()
-    with uk.captured_launches() as rec, torch.cuda.graph(graph):
+    with kl.captured() as rec, torch.cuda.graph(graph):
         g_out = calls["fwd"]() + (calls["bwd_no_gs"](),)
     beta.fill_(2.5)
     graph.replay()
-    uk.count_replay(rec)
+    kl.count_replay(rec)
     at_2_5 = calls["fwd"]() + (calls["bwd_no_gs"](),)
     plain_2_5 = uk.force_action_plain(xk, 2.5, nt, nx) + (
         uk.force_action_bwd_plain(xk, gk, None, None, 2.5, nt, nx),)

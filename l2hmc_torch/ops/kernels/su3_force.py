@@ -22,16 +22,16 @@ complex lattice (every other value of its buffer, as
 `su3_comp.from_complex_lattice` gives them where no copy is needed): the
 kernel reads them at their `pitch`; the outputs are contiguous.
 
-The library is built with nvcc at its first call (`u1_force.build`, keyed
-by a hash of this source and the flags, under `build/`) and loaded with
-ctypes; nothing is built or loaded on import. A launch goes to PyTorch's
-current stream, never synchronises and allocates its outputs and its
-scratch (one double per block and chain) with `torch.empty`, so it can be
-captured in a CUDA graph after one warm call. beta reaches the kernel as a
-device operand: a 0-d tensor on the tensors' device is passed by pointer
-and read when the kernel runs (a graph replays at whatever value it then
-holds); a Python number or a CPU scalar is passed by value, a constant of
-the launch, so no fill of a device scalar is added to the call.
+The library is built and loaded at its first call by
+`ops/kernels/library.py`; nothing is built or loaded on import. A launch
+goes to PyTorch's current stream, never synchronises and allocates its
+outputs and its scratch (one double per block and chain) with
+`torch.empty`, so it can be captured in a CUDA graph after one warm call.
+beta reaches the kernel as a device operand: a 0-d tensor on the tensors'
+device is passed by pointer and read when the kernel runs (a graph replays
+at whatever value it then holds); a Python number or a CPU scalar is
+passed by value, a constant of the launch, so no fill of a device scalar
+is added to the call.
 
 The trace sums are deterministic (a fixed-order reduction, no
 floating-point atomics), so two launches on the same input give the same
@@ -46,53 +46,31 @@ threads launching on one card at once would mix their tickets and leave
 from __future__ import annotations
 
 import ctypes
-import hashlib
+import functools
 import math
 from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
-from l2hmc_torch.ops.kernels import launches, u1_force
+from l2hmc_torch.ops.kernels import launches, library
 
-SOURCE = u1_force.CSRC / "su3_force.cu"
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "su3_force.cu"
 NAME = "su3_force_fwd"
-launches.register(NAME)
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-#: the loaded library: entry points by dtype, the error string, the block
-#: size, filled by _load()
-_LIB: dict = {}
+_p, _i = ctypes.c_void_p, ctypes.c_int
+#: (re, im, pitch, f_re, f_im, tr, partial, partial's length, beta's
+#: pointer or None, beta's value, the four extents, nb)
+LIB = library.Library(SOURCE, {NAME: [
+    _p, _p, _i, _p, _p, _p, _p, ctypes.c_longlong, _p, ctypes.c_double,
+    _i, _i, _i, _i, _i]})
 
 
-def library_path() -> Path:
-    """The .so for this source and the U(1) build's flags (keyed by their
-    hash, so a stale build is never loaded)."""
-    h = hashlib.sha256(" ".join(u1_force.NVCC_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return u1_force.BUILD_DIR / f"su3_force_{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile csrc/su3_force.cu unless this source's build exists;
-    (library path, compiler output)."""
-    return u1_force.build(verbose, SOURCE, library_path())
-
-
-def _load() -> None:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for dtype, sfx in _SUFFIX.items():
-        fn = getattr(lib, f"su3_force_fwd_{sfx}")
-        fn.argtypes = [p, p, i, p, p, p, p, ctypes.c_longlong, p,
-                       ctypes.c_double, i, i, i, i, i, i, p]
-        fn.restype = i
-        _LIB[dtype] = fn
-    lib.su3_force_error_string.argtypes = [i]
-    lib.su3_force_error_string.restype = ctypes.c_char_p
-    lib.su3_force_threads.restype = i
-    _LIB["error_string"] = lib.su3_force_error_string
-    _LIB["threads"] = lib.su3_force_threads()
+@functools.cache
+def _threads() -> int:
+    """The kernel's block size, as the library reports it."""
+    fn = LIB.load().su3_force_threads
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 
 
 def pitch(re: torch.Tensor, im: torch.Tensor) -> Optional[int]:
@@ -110,7 +88,7 @@ def _check(re: torch.Tensor, im: torch.Tensor, lat: Sequence[int],
     """Raise on what the kernel does not take; return (L, pitch)."""
     if re.device.type != "cuda":
         raise ValueError(f"{NAME}: expected CUDA tensors, got {re.device}")
-    if re.dtype not in _SUFFIX:
+    if re.dtype not in library.SUFFIX:
         raise TypeError(f"{NAME}: dtype {re.dtype} not supported "
                         "(float32, float64)")
     if len(lat) != 4 or min(lat) < 1 or nb < 1:
@@ -131,47 +109,26 @@ def _check(re: torch.Tensor, im: torch.Tensor, lat: Sequence[int],
     return n, p
 
 
-def _beta_args(beta, like: torch.Tensor):
-    """(device scalar or None, its pointer or None, value): beta as the
-    kernel reads it. A tensor on the tensors' device is passed by pointer
-    (cast if its dtype differs), never read on the host; a number or a CPU
-    scalar by value."""
-    beta = u1_force._beta_arg(beta)
-    if isinstance(beta, torch.Tensor) and beta.device == like.device:
-        if beta.numel() != 1:
-            raise ValueError(f"beta must be one value, got shape "
-                             f"{tuple(beta.shape)}")
-        b = beta.reshape(()).to(like.dtype).contiguous()
-        return b, b.data_ptr(), 0.0
-    if isinstance(beta, torch.Tensor) and beta.device.type != "cpu":
-        raise ValueError(f"beta is on {beta.device}, the links on "
-                         f"{like.device}")
-    return None, None, float(beta)
-
-
 def force_and_traces(re: torch.Tensor, im: torch.Tensor, beta,
                      lat: Sequence[int], nb: int):
     """(force re, force im, per-chain plaquette Re-trace sums): one launch
     of the CUDA kernel."""
     lat = tuple(int(n) for n in lat)
     n, p = _check(re, im, lat, nb)
-    if not _LIB:
-        _load()
-    blocks = -(-n // _LIB["threads"])
+    blocks = -(-n // _threads())
     f_re = torch.empty((3, 3, n), dtype=re.dtype, device=re.device)
     f_im = torch.empty_like(f_re)
     tr = re.new_empty((nb,))
     partial = torch.empty((blocks * nb,), dtype=torch.float64,
                           device=re.device)
-    beta_t, ptr, value = _beta_args(beta, re)   # held through the launch
-    rc = _LIB[re.dtype](re.data_ptr(), im.data_ptr(), p, f_re.data_ptr(),
-                        f_im.data_ptr(), tr.data_ptr(), partial.data_ptr(),
-                        partial.numel(), ptr, value, *lat, nb,
-                        re.device.index, u1_force._raw_stream(re))
-    if rc != 0:
-        what = _LIB["error_string"](rc).decode()
-        raise RuntimeError(f"{NAME} launch failed: CUDA error {rc} ({what})")
-    launches.add(NAME)
+    # a tensor on the links' device by pointer (held through the launch),
+    # a number or a CPU scalar by value
+    b = library.beta(beta, re)
+    ptr, value = ((b.data_ptr(), 0.0) if isinstance(b, torch.Tensor)
+                  else (None, b))
+    LIB.launch(NAME, re, re.data_ptr(), im.data_ptr(), p, f_re.data_ptr(),
+               f_im.data_ptr(), tr.data_ptr(), partial.data_ptr(),
+               partial.numel(), ptr, value, *lat, nb)
     return f_re, f_im, tr
 
 

@@ -15,8 +15,9 @@ chain-first x of shape (nb, 2*nt*nx) or (nb, 2, nt, nx):
                                    autograd.Function over the two above)
 
 A CUDA tensor launches the hand-written kernel in `csrc/u1_force.cu`
-(built with nvcc at first use, loaded with ctypes) or raises; a CPU tensor
-takes the plain version (`force_action_plain`, `force_action_bwd_plain`).
+(built and loaded at first use by `ops/kernels/library.py`) or raises; a
+CPU tensor takes the plain version (`force_action_plain`,
+`force_action_bwd_plain`).
 There is no fallback from the kernel to the plain version.
 
 A launch goes to PyTorch's current stream, never synchronises and does
@@ -27,34 +28,22 @@ x's device is passed by pointer and read by the kernel when it runs, so a
 graph captured at one beta replays at whatever value that tensor holds; a
 Python number or a CPU scalar is first written into a device scalar.
 
-Each wrapper counts its kernel's launches in `ops/kernels/launches.py`
-(`launch_counts()` reads this module's two); `captured_launches` and
-`count_replay` are that registry's `captured` and `count_replay`.
+Each launch is counted in `ops/kernels/launches.py` (`launch_counts()`
+reads this module's two).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from l2hmc_torch.ops import lattice_u1 as lat
-from l2hmc_torch.ops.kernels import launches
+from l2hmc_torch.ops.kernels import launches, library
 from l2hmc_torch.utils import spans
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCE = CSRC / "u1_force.cu"
-#: build output, under the checkout root (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
-    "l2hmc_torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "u1_force.cu"
 #: shared memory one block can use on sm_90 (227 KB), less the kernels'
 #: static shared memory (barriers, the reduction's per-warp partials)
 SMEM_LIMIT = 232448 - 1024
@@ -62,13 +51,12 @@ SMEM_LIMIT = 232448 - 1024
 #: forward [xu, xv, sin W], backward [xu, xv, gF_u, gF_v, cos W * A gF]
 FWD_WORDS, BWD_WORDS = 3, 5
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 NAMES = ("u1_force_fwd", "u1_force_bwd")
-launches.register(*NAMES)
-#: the loaded library's entry points by dtype, filled by _load()
-_FWD: dict = {}
-_BWD: dict = {}
-_ERROR_STRING: list = []
+_p, _i = ctypes.c_void_p, ctypes.c_int
+#: fwd (x, force, act, beta, nb, nt, nx), bwd (x, g_force, g_act, force,
+#: x_bar, beta, nb, nt, nx)
+LIB = library.Library(SOURCE, {NAMES[0]: [_p, _p, _p, _p, _i, _i, _i],
+                               NAMES[1]: [_p] * 6 + [_i, _i, _i]})
 
 
 # ---------------------------------------------------------------------------
@@ -97,116 +85,17 @@ def force_action_bwd_plain(x: torch.Tensor, g_force: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Build and load
-# ---------------------------------------------------------------------------
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
-            "/usr/local/cuda and $PATH): the port's CUDA kernels cannot be "
-            "built, so CUDA tensors cannot take their paths")
-    return found
-
-
-def build_inputs(csrc: Path = CSRC) -> list[Path]:
-    """Every file the build reads: the sources and headers under csrc."""
-    return sorted(p for p in csrc.iterdir()
-                  if p.suffix in (".cu", ".cuh", ".h"))
-
-
-def library_path(csrc: Path = CSRC) -> Path:
-    """The .so for the current sources, headers and flags (keyed by their
-    hash, so a stale build is never loaded)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in build_inputs(csrc):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_DIR / f"u1_force_{h.hexdigest()[:16]}.so"
-
-
-def build(verbose: bool = False, source: Path = SOURCE,
-          path: Optional[Path] = None) -> tuple[Path, str]:
-    """Compile `source` (csrc/u1_force.cu) into `path` (by default this
-    source's `library_path()`) unless that build exists. Returns (library
-    path, compiler output); verbose adds -Xptxas -v (registers, shared
-    memory, spills per kernel) to a fresh build."""
-    path = library_path() if path is None else path
-    if path.exists():
-        return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(source)]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                f"{r.stdout}{r.stderr}")
-        os.replace(tmp, path)     # atomic: concurrent builds agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, r.stdout + r.stderr
-
-
-def _load() -> None:
-    """Build if needed, load the library and resolve its entry points once
-    per dtype."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for dtype, sfx in _SUFFIX.items():
-        fwd = getattr(lib, f"u1_force_fwd_{sfx}")
-        fwd.argtypes = [p, p, p, p, i, i, i, i, p]
-        fwd.restype = i
-        bwd = getattr(lib, f"u1_force_bwd_{sfx}")
-        bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-        bwd.restype = i
-        _FWD[dtype], _BWD[dtype] = fwd, bwd
-    lib.u1_force_error_string.argtypes = [i]
-    lib.u1_force_error_string.restype = ctypes.c_char_p
-    _ERROR_STRING.append(lib.u1_force_error_string)
-
-
-def _raise_launch_error(name: str, rc: int):
-    what = _ERROR_STRING[0](rc).decode()
-    raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({what})")
-
-
-# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
-def _beta_arg(beta):
-    """beta as given (a number or a tensor), refused if it wants a
-    gradient."""
-    if isinstance(beta, torch.Tensor) and beta.requires_grad:
-        raise ValueError(
-            "beta is a non-trainable scalar here: the force kernel's "
-            "autograd.Function returns no gradient for it")
-    return beta
-
-
 def beta_operand(beta, x: torch.Tensor) -> torch.Tensor:
     """beta as the kernel reads it: a contiguous 0-d tensor of x's dtype
-    on x's device. A tensor on x's device is passed on (cast if its dtype
-    differs), never read on the host; a number or a CPU scalar is written
-    into a new device scalar."""
-    beta = _beta_arg(beta)
-    if isinstance(beta, torch.Tensor) and beta.device == x.device:
-        if beta.numel() != 1:
-            raise ValueError(f"beta must be one value, got shape "
-                             f"{tuple(beta.shape)}")
-        return beta.reshape(()).to(x.dtype).contiguous()
-    if isinstance(beta, torch.Tensor) and beta.device.type != "cpu":
-        raise ValueError(f"beta is on {beta.device}, x on {x.device}")
-    return torch.full((), float(beta), dtype=x.dtype, device=x.device)
+    on x's device. A tensor on x's device is passed on (`library.beta`),
+    never read on the host; a number or a CPU scalar is written into a new
+    device scalar."""
+    b = library.beta(beta, x)
+    if isinstance(b, torch.Tensor):
+        return b
+    return torch.full((), b, dtype=x.dtype, device=x.device)
 
 
 def _check_cuda(name: str, x: torch.Tensor, nt: int, nx: int,
@@ -216,7 +105,7 @@ def _check_cuda(name: str, x: torch.Tensor, nt: int, nx: int,
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got "
                          f"{x.device}")
-    if x.dtype not in _SUFFIX:
+    if x.dtype not in library.SUFFIX:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         "(float32, float64)")
     if not x.is_contiguous():
@@ -238,12 +127,6 @@ def _check_cuda(name: str, x: torch.Tensor, nt: int, nx: int,
     return nb
 
 
-def _raw_stream(x: torch.Tensor) -> int:
-    """PyTorch's current stream on x's device, as the integer handle (no
-    Stream object is built)."""
-    return torch._C._cuda_getCurrentRawStream(x.device.index)
-
-
 @spans.span("u1.force")
 def force_action(x: torch.Tensor, beta, nt: int, nx: int):
     """Force and action: the CUDA kernel for a CUDA tensor, the plain
@@ -256,14 +139,8 @@ def force_action(x: torch.Tensor, beta, nt: int, nx: int):
     act = x.new_empty((nb,))
     if nb == 0:
         return force, act
-    if not _FWD:
-        _load()
-    rc = _FWD[x.dtype](x.data_ptr(), force.data_ptr(), act.data_ptr(),
-                       beta.data_ptr(), nb, nt, nx, x.device.index,
-                       _raw_stream(x))
-    if rc != 0:
-        _raise_launch_error("u1_force_fwd", rc)
-    launches.add("u1_force_fwd")
+    LIB.launch("u1_force_fwd", x, x.data_ptr(), force.data_ptr(),
+               act.data_ptr(), beta.data_ptr(), nb, nt, nx)
     return force, act
 
 
@@ -288,16 +165,10 @@ def force_action_bwd(x: torch.Tensor, g_force: torch.Tensor,
     x_bar = torch.empty_like(x)
     if nb == 0:
         return x_bar
-    if not _BWD:
-        _load()
-    rc = _BWD[x.dtype](x.data_ptr(), g_force.data_ptr(),
-                       g_act.data_ptr() if with_act else None,
-                       force.data_ptr() if with_act else None,
-                       x_bar.data_ptr(), beta.data_ptr(), nb, nt, nx,
-                       x.device.index, _raw_stream(x))
-    if rc != 0:
-        _raise_launch_error("u1_force_bwd", rc)
-    launches.add("u1_force_bwd")
+    LIB.launch("u1_force_bwd", x, x.data_ptr(), g_force.data_ptr(),
+               g_act.data_ptr() if with_act else None,
+               force.data_ptr() if with_act else None, x_bar.data_ptr(),
+               beta.data_ptr(), nb, nt, nx)
     return x_bar
 
 
@@ -307,10 +178,6 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     launches.reset(*NAMES)
-
-
-captured_launches = launches.captured
-count_replay = launches.count_replay
 
 
 class ForceAction(torch.autograd.Function):
@@ -348,5 +215,5 @@ def force_action_ad(x: torch.Tensor, beta, nt: int, nx: int):
     """Differentiable (force, action); the port's counterpart of
     `u1_kernels.force_action_ad`."""
     x = x.contiguous()
-    beta = beta_operand(beta, x) if x.is_cuda else _beta_arg(beta)
+    beta = beta_operand(beta, x) if x.is_cuda else library.beta(beta, x)
     return ForceAction.apply(x, beta, nt, nx)

@@ -19,8 +19,8 @@ SU(3): the lattice is complex (complex128 at precision=float64, else
 complex64), every train step reports the unitarity monitors `checkSU_*`
 of its output, HMC steps report the engine's free plaquettes, eval and HMC
 draws add the Wilson-flowed observables when `flow_nsteps > 0` (on the
-card replayed from a CUDA graph of the whole flow, captured at the first
-draw), and the warmup stops on plaquette stationarity.
+card replayed from a CUDA graph of the whole flow, as the steps are), and
+the warmup stops on plaquette stationarity.
 
 Parallelism (`parallel/`, over `torch.distributed`, one process per
 device). With a 1-D data mesh the chains split over the ranks: each rank
@@ -35,9 +35,10 @@ the data axis before anything reads it, so the logged means, the warmup's
 eps, the plateau lr, the dynamic HMC eps and the stuck-chain redraw are
 decided on global means, alike on every rank.
 
-Compiled steps: on one CUDA device every train, eval and HMC step is
-replayed from a CUDA graph, the counterpart of the JAX package's jitted
-`_jit_train_step` / `_jit_eval_step` / `_jit_hmc_step` (`_run`). The
+Compiled steps: on one CUDA device every train, eval and HMC step, and
+every draw's Wilson flow, is replayed from a CUDA graph, the counterpart
+of the JAX package's jitted `_jit_train_step` / `_jit_eval_step` /
+`_jit_hmc_step` (`_run`). The
 step's random draws are made before it from the caller's generator, in
 the order the eager step makes them inline (`_step_draws`); beta, the HMC
 eps and the draws are copied into the graph's static inputs, and the lr
@@ -134,6 +135,16 @@ def _sync(device: torch.device) -> None:
         spans.count("host_reads")
 
 
+def _cloned(out):
+    """A replayed graph's outputs (tensors, in tuples and dicts), cloned
+    out of its static memory, which the next replay overwrites."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _cloned(v) for k, v in out.items()}
+    return tuple(_cloned(v) for v in out)
+
+
 def _read_mean(t: torch.Tensor) -> float:
     """The mean of t on the host: a blocking read, counted."""
     spans.count("host_reads")
@@ -141,8 +152,8 @@ def _read_mean(t: torch.Tensor) -> float:
 
 
 class _StepGraph(NamedTuple):
-    """One captured step: the graph, its static inputs and outputs, the
-    force-kernel launches it holds, and its capture's numbers."""
+    """One captured step or flow: the graph, its static inputs and
+    outputs, the kernel launches it holds, and its capture's numbers."""
     graph: "torch.cuda.CUDAGraph"
     inputs: dict
     outputs: tuple
@@ -200,10 +211,8 @@ class Trainer:
                        for j in ("train", "eval", "hmc", "warmup")}
         self.histories = {j: History() for j in ("train", "eval", "hmc")}
         self.trackers = None   # optional utils.trackers.Trackers fan-out
-        #: the flowed observables' CUDA graphs, by input shape
-        self._flow_graphs: dict = {}
-        #: the steps' CUDA graphs by key (`_run`), the keys whose first,
-        #: eager step has run, and the graphs' one memory pool
+        #: the steps' and the flow's CUDA graphs by key (`_run`), the keys
+        #: whose first, eager call has run, and the graphs' one memory pool
         self.use_graphs = (bool(graphs) and self.device.type == "cuda"
                            and mesh is None)
         self._graphs: dict = {}
@@ -439,8 +448,9 @@ class Trainer:
         update = self._takes_update()
         if update:
             self.set_lr(self._scheduled_lr())
-        xout, out = self._run("train", self._train_body, x,
-                              self._scalar(beta), d, update=update)
+        xout, out = self._run("train", self._train_body,
+                              {"x": x, "beta": self._scalar(beta), **d},
+                              update=update)
         if update:
             self.updates += 1
         self.step += 1
@@ -633,8 +643,8 @@ class Trainer:
             return xout, self._gather_metrics(out)
         with DRAWS:
             d = self._step_draws("eval", x, generator, draws)
-        xout, out = self._run("eval", self._eval_body, x, self._scalar(beta),
-                              d)
+        xout, out = self._run("eval", self._eval_body,
+                              {"x": x, "beta": self._scalar(beta), **d})
         return xout, self._gather_metrics(out)
 
     def _eval_body(self, x, beta, generator=None, **d):
@@ -664,8 +674,9 @@ class Trainer:
             return xout, self._gather_metrics(out)
         with DRAWS:
             d = self._step_draws("hmc", x, generator, draws)
-        d["eps"] = self._scalar(eps)
-        xout, out = self._run("hmc", self._hmc_body, x, self._scalar(beta), d)
+        xout, out = self._run("hmc", self._hmc_body,
+                              {"x": x, "beta": self._scalar(beta),
+                               "eps": self._scalar(eps), **d})
         return xout, self._gather_metrics(out)
 
     def _hmc_body(self, x, beta, eps, generator=None, **d):
@@ -688,26 +699,26 @@ class Trainer:
     # _jit_train_step / _jit_eval_step / _jit_hmc_step)
     # ------------------------------------------------------------------
     @RUN
-    def _run(self, job: str, body, x, beta, d: dict, **flags):
-        """body(x, beta, **d, **flags) -> (x_out, metrics): eagerly, or on
-        the card replayed from a CUDA graph. A graph is keyed as JAX keys
-        its traces: the job, the shapes and dtypes of its tensor inputs,
-        and what is decided on the host (the direction of a
-        single-direction transition, whether a train step applies the
-        Adam update, and the accumulation count it was traced with).
-        beta, eps, the draws and x are copied into the graph's static
-        inputs before each replay, and the lr is read from the
-        optimizer's device scalar, so no value of theirs is baked in.
-        A key's first step runs eagerly on a side stream (it warms the
+    def _run(self, job: str, body, inputs: dict, **flags):
+        """body(**inputs, **flags) -> its outputs (tensors, in tuples and
+        dicts): eagerly, or on the card replayed from a CUDA graph. The
+        tensors of `inputs` (x, beta, eps, the draws) are copied into the
+        graph's static inputs before each replay, and the lr is read from
+        the optimizer's device scalar, so no value of theirs is baked in;
+        its other values are flags, decided on the host (the direction of
+        a single-direction transition), as `flags` are (whether a train
+        step applies the Adam update). A graph is keyed as JAX keys its
+        traces: the job, the shapes and dtypes of its tensor inputs, the
+        flags, and the accumulation count a train step was traced with.
+        A key's first call runs eagerly on a side stream (it warms the
         allocator, the libraries and the optimizer state); the second is
-        captured and every later one replayed. A failed capture or replay
-        raises."""
-        tensors = {"x": x, "beta": beta}
-        for k, v in d.items():
-            if isinstance(v, torch.Tensor):
-                tensors[k] = v
-            else:
-                flags[k] = v
+        captured and every later one replayed. The replay's outputs are
+        cloned at once, so no graph's memory outlives its replay and
+        every graph shares the trainer's one pool. A failed capture or
+        replay raises."""
+        tensors = {k: v for k, v in inputs.items()
+                   if isinstance(v, torch.Tensor)}
+        flags.update((k, v) for k, v in inputs.items() if k not in tensors)
         if not self.use_graphs:
             return body(**tensors, **flags)
         key = (job, tuple((k, tuple(t.shape), t.dtype)
@@ -734,8 +745,7 @@ class Trainer:
             kernel_launches.count_replay(entry.launches)
             entry.stats["replays"] += 1
         with RUN_OUTPUTS:
-            xout, out = entry.outputs
-            return xout.clone(), {k: v.clone() for k, v in out.items()}
+            return _cloned(entry.outputs)
 
     def _capture(self, key, body, tensors: dict, flags: dict):
         """Capture body into a CUDA graph over static copies of its
@@ -787,13 +797,12 @@ class Trainer:
     def graph_stats(self) -> list:
         """Per captured graph, the steps' and the flow's (job "flow"): its
         job, host-decided flags, input shapes, capture and instantiation
-        seconds, its replays, its device operations (`ops`: kernel, copy
-        and fill nodes), each span's inclusive operations (`span_ops`,
-        "(none)": in no span) and their [first, last) operation ordinals
-        (`span_ranges`), the force-kernel launches it holds; a step graph
-        also the memory its capture added to the pool."""
-        return [dict(e.stats) for e in (*self._graphs.values(),
-                                        *self._flow_graphs.values())]
+        seconds, the memory its capture added to the pool, its replays,
+        its device operations (`ops`: kernel, copy and fill nodes), each
+        span's inclusive operations (`span_ops`, "(none)": in no span)
+        and their [first, last) operation ordinals (`span_ranges`), and
+        the kernel launches it holds."""
+        return [dict(e.stats) for e in self._graphs.values()]
 
     # ------------------------------------------------------------------
     # Wilson-flowed eval observables (flow_nsteps > 0, SU(3) only):
@@ -809,13 +818,15 @@ class Trainer:
 
     @torch.no_grad()
     def _flow_metrics(self, x) -> dict:
-        ns = int(self.cfg.flow_nsteps)
+        """The flowed observables of a draw: on one card replayed from a
+        CUDA graph as the steps are (`_run`; the 12-step flow of an 8^4 x
+        8 draw is ~53,000 plain launches: 1,026 ms eager, 137 ms replayed
+        on an H100), eagerly where the steps run eagerly."""
         if self.sharded is not None:
             return self._gather_metrics(self.sharded.flow_metrics(
-                x, float(self.cfg.flow_eps), ns))
-        if x.is_cuda:
-            return self._gather_metrics(self._flow_replay(x))
-        return self._gather_metrics(self._flow_observables(x))
+                x, float(self.cfg.flow_eps), int(self.cfg.flow_nsteps)))
+        return self._gather_metrics(
+            self._run("flow", self._flow_observables, {"x": x}))
 
     @FLOW
     def _flow_observables(self, x) -> dict:
@@ -828,41 +839,6 @@ class Trainer:
         # measured time (ns-1)*eps
         return {"flowQ": comp.topo_charge_clover(res.x, lat, nb),
                 "flow_plaq": obs["plaq"][-1], "flow_t2E": obs["t2E"][-1]}
-
-    def _flow_replay(self, x) -> dict:
-        """`_flow_observables` on the card, captured once per input shape
-        in a CUDA graph and replayed: the same kernels in the same order,
-        without the host's launch cost (the 12-step flow of an 8^4 x 8
-        draw is ~53,000 launches: 1,026 ms eager, 137 ms replayed on an
-        H100). Its graph is listed by `graph_stats` under job "flow"."""
-        key = (tuple(x.shape), x.dtype, x.device)
-        if key not in self._flow_graphs:
-            static_x = x.clone()
-            side = torch.cuda.Stream(x.device)
-            side.wait_stream(torch.cuda.current_stream(x.device))
-            with torch.cuda.stream(side):
-                self._flow_observables(static_x)      # warm the allocator
-            torch.cuda.current_stream(x.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with kernel_launches.captured() as launches:
-                t0 = time.perf_counter()
-                with torch.cuda.graph(graph):
-                    with spans.capture(graph) as cap:
-                        out = self._flow_observables(static_x)
-                    t1 = time.perf_counter()
-                t2 = time.perf_counter()
-            stats = {"job": "flow", "flags": {}, "grad_accum_steps": 1,
-                     "shapes": {"x": list(x.shape)}, "capture_s": t1 - t0,
-                     "instantiate_s": t2 - t1, "launches": dict(launches),
-                     "replays": 0, **cap.stats}
-            self._flow_graphs[key] = _StepGraph(graph, {"x": static_x}, out,
-                                                dict(launches), stats)
-        entry = self._flow_graphs[key]
-        entry.inputs["x"].copy_(x)
-        entry.graph.replay()
-        kernel_launches.count_replay(entry.launches)
-        entry.stats["replays"] += 1
-        return {k: v.clone() for k, v in entry.outputs.items()}
 
     # ------------------------------------------------------------------
     # Profile (JAX trainer.py:496-512)

@@ -49,6 +49,9 @@ from pathlib import Path
 
 import torch
 
+from l2hmc_torch.ops.kernels import launches as kernel_launches
+from l2hmc_torch.ops.kernels import library
+
 #: H100 SXM data sheet: HBM rate, float32 and float64 rates outside the
 #: tensor cores (dense), at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -255,12 +258,12 @@ def device_ms(fn, reps: int) -> dict:
             "kernels_per_call": sum(c for c, _ in kern.values()) / reps}
 
 
-def graph_replay(step, launches: int, replays: int = 50, uk=None):
+def graph_replay(step, launches: int, replays: int = 50):
     """Capture `launches` calls step(0), step(1), ... into one CUDA graph
     and replay it. Returns (ms per launch, the captured calls' outputs
     after a replay): the outputs let the caller hold replay against eager.
-    With `uk` (a u1_force module that counts replays) its launch counters
-    count each replay's launches, and not the capture's."""
+    The kernels' launch counters (`ops/kernels/launches.py`) count each
+    replay's launches, and not the capture's."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):      # warm: build, load, one-time set-up
@@ -268,19 +271,12 @@ def graph_replay(step, launches: int, replays: int = 50, uk=None):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    counts = uk is not None and hasattr(uk, "captured_launches")
-    recorded = {}
-    if counts:
-        with uk.captured_launches() as recorded, torch.cuda.graph(graph):
-            outs = [step(i) for i in range(launches)]
-    else:
-        with torch.cuda.graph(graph):
-            outs = [step(i) for i in range(launches)]
+    with kernel_launches.captured() as recorded, torch.cuda.graph(graph):
+        outs = [step(i) for i in range(launches)]
 
     def replay():
         graph.replay()
-        if counts:
-            uk.count_replay(recorded)
+        kernel_launches.count_replay(recorded)
     ms = cuda_ms(replay, replays, warmup=3) / launches
     return ms, outs
 
@@ -374,13 +370,11 @@ def measure(uk, nb, nt, nx, dtype, reps=200, dev_reps=50) -> dict:
         row["events_ms"] = cuda_ms(hot.call(kind), reps, batches=5)
         row["device_ms"] = device_ms(hot.call(kind), dev_reps)[
             "device_ms_per_call"]
-        row["graph_ms"], _ = graph_replay(hot.call(kind), GRAPH_LAUNCHES,
-                                          uk=uk)
+        row["graph_ms"], _ = graph_replay(hot.call(kind), GRAPH_LAUNCHES)
         row["cold_device_ms"] = device_ms(counted(cold.call(kind)),
                                           max(dev_reps, 2 * n_cold))[
             "device_ms_per_call"]
-        row["cold_graph_ms"], _ = graph_replay(cold.call(kind), n_cold,
-                                               uk=uk)
+        row["cold_graph_ms"], _ = graph_replay(cold.call(kind), n_cold)
         out["kernels"][kind] = row
     return out
 
@@ -406,9 +400,9 @@ def host_split(uk, nb=2048, nt=16, nx=16) -> dict:
     f, a = uk.force_action(x, b, nt, nx)
     g = torch.randn_like(x)
     gs = torch.randn_like(a)
-    fwd = uk._FWD[x.dtype]
+    fwd = uk.LIB.entry("u1_force_fwd", x.dtype)
     args = (x.data_ptr(), f.data_ptr(), a.data_ptr(), b.data_ptr(), nb, nt,
-            nx, x.device.index, uk._raw_stream(x))
+            nx, x.device.index, library.raw_stream(x))
     n = nb * 2 * nt * nx
 
     def one_allocation():
@@ -429,7 +423,7 @@ def host_split(uk, nb=2048, nt=16, nx=16) -> dict:
         ("one_allocation_two_views", one_allocation),
         ("three_data_ptr", lambda: (x.data_ptr(), f.data_ptr(),
                                     a.data_ptr())),
-        ("raw_stream", lambda: uk._raw_stream(x)),
+        ("raw_stream", lambda: library.raw_stream(x)),
         ("stream_object", lambda: torch.cuda.current_stream(
             x.device).cuda_stream),
         ("ctypes_launch_alone", lambda: fwd(*args))]}
@@ -437,7 +431,8 @@ def host_split(uk, nb=2048, nt=16, nx=16) -> dict:
 
 def load_kernels(root: Path, name: str):
     """The u1_force module of the checkout at `root`, under another module
-    name: it builds from that checkout's sources into that checkout."""
+    name: its library is keyed on, and builds from, that checkout's
+    sources into that checkout's build directory."""
     path = root / "l2hmc_torch" / "ops" / "kernels" / "u1_force.py"
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)

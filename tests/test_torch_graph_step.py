@@ -14,7 +14,9 @@
 - Op attribution at capture (utils/spans.py): the spans inside a captured
   U(1) train step, SU(3) eval step and SU(3) flow partition the graph's
   operations, nest as the step path does, and hold the stand-in graph's
-  ops recorded inside each; the flow's graph is listed by graph_stats.
+  ops recorded inside each; the flow's graph, captured by `_run` after a
+  shape's first, eager flow, shares the trainer's pool and is listed by
+  graph_stats.
 - On the card (`cuda` marker, skipped here): graphed steps bit-equal to
   eager ones across a beta, lr and eps change, one capture per key.
 
@@ -288,14 +290,16 @@ def _tape_nodes(tape):
 class _StandInCuda:
     """What Trainer._run and _capture use of torch.cuda, on the CPU: the
     graph is a _Tape, the streams do nothing, and a capture leaves the
-    trainer's tensors as it found them (a capture runs no kernel)."""
+    trainer's tensors as it found them (a capture runs no kernel). Each
+    capture's tape and memory pool are kept in `captures`."""
 
     def __init__(self, trainer):
         self.tr = trainer
+        self.captures = []
         self.Stream = lambda *a, **k: self
         self.current_stream = lambda *a, **k: self
         self.stream = lambda s: contextlib.nullcontext()
-        self.graph_pool_handle = lambda: None
+        self.graph_pool_handle = object
         self.memory_reserved = lambda *a, **k: 0
         self.empty_cache = lambda: None
         self.CUDAGraph = _Tape
@@ -312,6 +316,7 @@ class _StandInCuda:
 
     @contextlib.contextmanager
     def graph(self, tape, pool=None):
+        self.captures.append((tape, pool))
         saved = [(t, t.detach().clone()) for t in self._state()]
         with tape:
             yield
@@ -476,29 +481,40 @@ def test_capture_attributes_every_op_to_its_span(monkeypatch, name, job):
 
 
 def test_flow_graph_is_listed_and_attributed(monkeypatch):
-    """`_flow_replay` captures the flow once per shape, lists its graph in
-    graph_stats under job "flow" with its capture, replays and span
-    operations, and its replay equals the eager flow."""
+    """`_flow_metrics` runs a shape's first flow eagerly, then captures it
+    through `_run` in the trainer's one pool, lists its graph in
+    graph_stats under job "flow" with its capture, pool memory, replays
+    and span operations, and its replay equals the eager flow."""
     tr = _trainer("su3_flowed_loss")
     tr.cfg.flow_nsteps = 1
     _, _, x = _captured(monkeypatch, tr, "eval", 2)
-    assert not any(s["job"] == "flow" for s in tr.graph_stats())
+    from l2hmc_torch.train import trainer as trainer_mod
+    cuda = trainer_mod.torch.cuda
     y = tr.random_x(torch.Generator().manual_seed(7), x.shape[0])
-    tr._flow_replay(x)
-    out = tr._flow_replay(y)
+    first = tr._flow_metrics(y)
+    assert not any(s["job"] == "flow" for s in tr.graph_stats())
+    assert len(cuda.captures) == 1           # the eval step's only
+    tr._flow_metrics(x)
+    out = tr._flow_metrics(y)
     (flow,) = [s for s in tr.graph_stats() if s["job"] == "flow"]
     assert flow["replays"] == 2 and flow["shapes"] == {"x": list(x.shape)}
+    assert flow["flags"] == {} and flow["pool_bytes_added"] == 0
     assert flow["capture_s"] > 0 and flow["instantiate_s"] >= 0
-    tape = tr._flow_graphs[(tuple(x.shape), x.dtype, x.device)].graph
+    (entry,) = [e for e in tr._graphs.values() if e.stats["job"] == "flow"]
+    tape = entry.graph
+    assert tr._pool is not None
+    assert [p for t, p in cuda.captures] == [tr._pool, tr._pool]
+    assert cuda.captures[1][0] is tape
     _check_attribution(flow, tape, ("flow",),
                        ("su3.force_and_traces", "su3.expm", "su3.reunit"))
     assert flow["span_ops"]["flow"] == flow["ops"]
     for op in ("force_and_traces", "expm", "reunit"):
         assert flow["span_ops"][f"flow/su3.{op}"] > 0
     want = tr._flow_observables(y)
-    assert set(out) == set(want)
+    assert set(out) == set(want) == set(first)
     for k in want:
         assert torch.equal(out[k], want[k]), k
+        assert torch.equal(first[k], want[k]), k
 
 
 def test_the_cpu_runs_eagerly():
@@ -544,3 +560,31 @@ def test_cuda_graphed_steps_equal_eager_steps():
     stats = tr[True].graph_stats()
     assert sorted(s["job"] for s in stats) == ["eval", "hmc", "train"]
     assert all(s["replays"] >= 2 for s in stats)
+
+
+@pytest.mark.cuda
+def test_cuda_flow_graph_equals_the_eager_flow_and_twin():
+    """A flowed draw's Wilson flow on the card: eager at its shape's first
+    call, then captured in the trainer's pool and replayed, bit-equal to
+    the flow's body and to an eager twin's flow, which captures nothing;
+    listed by graph_stats as job "flow" with its pool memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py's su3_flow_graph "
+                    "phase runs this check at 8^4 on the H100)")
+    tr = Trainer(get_config(["flow_nsteps=2"], group="SU3"), device="cuda")
+    twin = tr.twin(graphs=False)
+    gen = torch.Generator("cuda").manual_seed(0)
+    xs = [tr.random_x(gen) for _ in range(3)]
+    outs = [tr._flow_metrics(x) for x in xs]
+    (flow,) = [s for s in tr.graph_stats() if s["job"] == "flow"]
+    assert flow["replays"] == 2 and flow["flags"] == {}
+    assert flow["shapes"] == {"x": list(xs[0].shape)}
+    assert flow["pool_bytes_added"] >= 0 and flow["ops"] > 0
+    for x, out in zip(xs, outs):
+        body = tr._flow_observables(x)
+        eager = twin._flow_metrics(x)
+        assert set(out) == set(body) == set(eager)
+        for k in body:
+            assert torch.equal(out[k], body[k]), k
+            assert torch.equal(out[k], eager[k]), k
+    assert twin.graph_stats() == []

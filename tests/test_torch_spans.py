@@ -346,8 +346,10 @@ def test_capture_span_ops_equal_the_eager_twins_launches(case):
                       for i in range(lo, hi)}
             assert at and set(at) <= inside, kernel
     if job == "eval":
-        tr._flow_replay(x)
-        (flow,) = [e for e in tr._flow_graphs.values()]
+        for _ in range(2):        # eager, then captured (and replayed)
+            tr._flow_metrics(x)
+        (flow,) = [e for e in tr._graphs.values()
+                   if e.stats["job"] == "flow"]
         fevs = _profiled(lambda: twin._flow_observables(x))
         eager, names = _per_span_ops(fevs, "flow")
         want = {p: v for p, v in flow.stats["span_ops"].items()

@@ -199,20 +199,46 @@ def test_beta_cpu_scalar_tensor_is_accepted():
     np.testing.assert_array_equal(a1.numpy(), a2.numpy())
 
 
-def test_library_path_follows_every_build_input(tmp_path):
-    """The build's hash covers the sources and the headers they include:
-    editing a copy of either changes the library's path."""
+@pytest.mark.parametrize("name,inputs", [
+    ("u1_force", ["u1_force.cu", "hopper_async.cuh"]),
+    ("su3_force", ["su3_force.cu"]),
+    ("su3_link", ["su3_link.cu"])])
+def test_library_path_follows_every_build_input(tmp_path, name, inputs):
+    """A library's build is keyed by its source and the local headers the
+    source includes: editing a copy of either changes the library's path,
+    and editing another library's source does not."""
+    import importlib
     import shutil
-    names = [p.name for p in tk.build_inputs()]
-    assert "u1_force.cu" in names and "hopper_async.cuh" in names
-    copy = tmp_path / "csrc"
-    shutil.copytree(tk.CSRC, copy)
-    assert tk.library_path(copy) == tk.library_path()
-    for name in names:
-        before = tk.library_path(copy)
-        with open(copy / name, "a") as f:
+    from l2hmc_torch.ops.kernels import library
+    mod = importlib.import_module(f"l2hmc_torch.ops.kernels.{name}")
+    assert [p.name for p in library.build_inputs(mod.SOURCE)] == inputs
+    copy = tmp_path / "l2hmc_torch" / "csrc"
+    shutil.copytree(mod.SOURCE.parent, copy)
+    lib = library.Library(copy / mod.SOURCE.name, {})
+    assert lib.path().name == mod.LIB.path().name
+    edited = sorted(p.name for p in copy.iterdir())
+    assert set(inputs) < set(edited)
+    for other in edited:
+        before = lib.path()
+        with open(copy / other, "a") as f:
             f.write("// edited\n")
-        assert tk.library_path(copy) != before, name
+        assert (lib.path() != before) == (other in inputs), other
+
+
+def test_build_inputs_follow_nested_local_headers(tmp_path):
+    """Headers included by headers are build inputs too, each found
+    relative to the file that includes it and listed once (an include
+    cycle ends); system headers are not."""
+    from l2hmc_torch.ops.kernels import library
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "a.cu").write_text(
+        '#include <cstdint>\n#include "inc/b.cuh"\n  # include "c.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text('#include "d.cuh"\n')
+    (tmp_path / "inc" / "d.cuh").write_text('#include "../c.cuh"\n')
+    (tmp_path / "c.cuh").write_text('#include "inc/d.cuh"\n')
+    got = library.build_inputs(tmp_path / "a.cu")
+    assert [p.relative_to(tmp_path).as_posix() for p in got] == [
+        "a.cu", "inc/b.cuh", "c.cuh", "inc/d.cuh"]
 
 
 @pytest.mark.parametrize("kind,nbytes", [("fwd", 8396800),

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from l2hmc_torch.ops.kernels import launches
 from l2hmc_torch.ops.kernels import u1_force as tk
 
 torch.set_num_threads(1)
@@ -136,14 +137,14 @@ def test_cuda_graph_replays_the_beta_it_reads(cuda_device):
     tk.force_action(x, b, nt, nx)            # build and load outside capture
     tk.reset_launch_counts()
     graph = torch.cuda.CUDAGraph()
-    with tk.captured_launches() as rec, torch.cuda.graph(graph):
+    with launches.captured() as rec, torch.cuda.graph(graph):
         f, a = tk.force_action(x, b, nt, nx)
         xb = tk.force_action_bwd(x, g, None, None, b, nt, nx)
     assert rec == {"u1_force_fwd": 1, "u1_force_bwd": 1}
     assert tk.launch_counts() == {"u1_force_fwd": 0, "u1_force_bwd": 0}
     b.fill_(2.5)
     graph.replay()
-    tk.count_replay(rec)
+    launches.count_replay(rec)
     fp, ap = tk.force_action_plain(x, 2.5, nt, nx)
     bp = tk.force_action_bwd_plain(x, g, None, None, 2.5, nt, nx)
     torch.testing.assert_close(f, fp, atol=2e-5, rtol=0)
