@@ -12,8 +12,8 @@ steps that way unless they say eager, which is `Trainer(graphs=False)` or
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from l2hmc_torch/csrc/ (nvcc, -Xptxas -v):
-     the U(1) library and the SU(3) link kernels' (their registers and
-     spills kept for the kernels line);
+     the U(1) library, the SU(3) link kernels' and the SU(3) force's (their
+     registers and spills kept for the kernels line);
   3. hold each kernel, beta read from a device scalar, against its plain
      PyTorch version on the card, at
      the main-path shape (2048 x 2x16x16, float32 and float64), a ragged
@@ -56,7 +56,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the draw's shape (8^4 x 8 chains, beta a device scalar) against
      its plain version in float32 (force 2e-5, traces 1e-6 a plaquette)
      and float64 (1e-12), with its event, device and graph-replay times
-     beside the plain version's; the link kernels at the same shape
+     beside the plain version's; its backward (`su3_force_bwd`) at the
+     same shape against the float64 plain version's autograd VJP (1e-5
+     and 1e-12 of its largest component) with its times, bound and
+     registers beside the plain VJP's, and its launches in a replayed
+     train step of the 8^4 configuration without the flowed loss (2
+     nleapfrog + 1 forward, 2 nleapfrog backward); the link kernels at the
+     same shape
      against the float64 plain bodies (float32 1e-6, float64 1e-13), with
      their times, the plain bodies' times and kernel counts on the card,
      and ptxas's registers and spills; the SU(3) defaults as they stand (4^4,
@@ -68,10 +74,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      200 warmup trajectories, 3 train, 3 eval and 3 HMC steps, each run
      with the kernels' launch counters set to 0 just before and the force
      kernel's launches required; its launches in one replayed train step
-     (the first force of the transition, at least one) and one eval draw
-     (all 2 nleapfrog + 1 + 3 flow steps of them), and the link kernels'
-     launches in both (an eval draw: 2 nleapfrog + 3 flow steps expm,
-     4 nleapfrog + flow steps reunit); the
+     (every force: 2 nleapfrog + 1 in the transition and 3 a flow step in
+     the flowed loss's flow of the incoming x and, with the backward's two
+     recomputations, three times in the proposal's; a backward for each
+     but the first force and the incoming x's flow) and one eval draw
+     (all 2 nleapfrog + 1 + 3 flow steps of them, no backward), and the
+     link kernels' launches in both (an eval draw: 2 nleapfrog + 3 flow
+     steps expm, 4 nleapfrog + flow steps reunit); the
      flowed observables replayed from their CUDA graph (one of the
      Trainer's graphs) against the eager flow and an eager twin's, bit
      for bit, graph and eager flow timed; `graph_steps` on the 4^4 default's
@@ -127,8 +136,8 @@ parameters, buffers and Adam state held bit for bit; one graph per key
 graph's capture and instantiation time and pool memory.
 Each result is one JSON line. The line before the last is
 {"kernels": [...]} with each kernel's launches, error, times and bound
-(the U(1) pair at the main path's shape, the SU(3) force, expm and
-reunit at 8^4 x 8);
+(the U(1) pair at the main path's shape, the SU(3) force, its backward,
+expm and reunit at 8^4 x 8);
 the last is {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that holds no l2hmc_torch, it
@@ -348,6 +357,112 @@ def su3_force_phase(torch, card) -> dict:
               "beta": "device scalar", **res[name]})
         assert err <= f_tol and err_tr <= tr_tol, (name, res[name])
     return res
+
+
+def su3_force_bwd_phase(torch, card, usage) -> dict:
+    """The SU(3) force's backward (ops/kernels/su3_force.py
+    `force_and_traces_bwd`, two kernels a call) at the train cell's shape,
+    8^4 x 8 chains, on reunitarised Haar links, beta 5.7 from a device
+    scalar, Gaussian cotangents of the force and the traces, in float32 and
+    float64: against the float64 plain version's autograd VJP as
+    tests/test_torch_su3_force_cuda.py holds it (1e-5 and 1e-12 of its
+    largest component); its event, device and graph-replay times beside
+    its bound, the plain VJP's times and kernels, and the registers and
+    spills ptxas reported (`usage`). Then one replayed train step of the
+    8^4 configuration without the flowed loss (the train cell's): its
+    force launches, 2 nleapfrog + 1 forward and 2 nleapfrog backward.
+    Returns the numbers by dtype and the step's launches."""
+    from l2hmc_torch.experiment import build_experiment
+    from l2hmc_torch.ops import su3 as g
+    from l2hmc_torch.ops import su3_comp as comp
+    from l2hmc_torch.ops.kernels import launches as kl
+    from l2hmc_torch.ops.kernels import su3_force as sk
+    from l2hmc_torch.utils import kernel_times as kt
+    from l2hmc_torch.utils import su3_times as st
+    dev, lat, nb, beta = torch.device("cuda"), (8, 8, 8, 8), 8, 5.7
+    gen = torch.Generator(dev).manual_seed(2)
+    x64 = comp.reunit(comp.from_complex_lattice(
+        g.random((nb, 4, *lat, 3, 3), gen, torch.complex128, dev)))
+    cot64 = [torch.randn(x64.re.shape, generator=gen, device=dev,
+                         dtype=torch.float64) for _ in range(2)]
+    cot64.append(torch.randn((nb,), generator=gen, device=dev,
+                             dtype=torch.float64))
+
+    def plain_vjp(x, cot, b):
+        """The plain VJP at x, and a call that runs its backward again."""
+        xr = x.re.detach().clone().requires_grad_()
+        xi = x.im.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            f, tr = comp.force_and_traces_plain(comp.F3(xr, xi), b, lat, nb)
+
+        def again():
+            return torch.autograd.grad((f.re, f.im, tr), (xr, xi), cot,
+                                       retain_graph=True)
+        return again(), again
+    want, _ = plain_vjp(x64, cot64, beta)
+    scale = max(float(w.abs().max()) for w in want)
+    res = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        name = str(dtype).replace("torch.", "")
+        x = comp.F3(x64.re.to(dtype).contiguous(),
+                    x64.im.to(dtype).contiguous())
+        cot = [t.to(dtype) for t in cot64]
+        bd = torch.full((), beta, dtype=dtype, device=dev)
+
+        def kern(i=0):
+            return sk.force_and_traces_bwd(x.re, x.im, *cot, bd, lat, nb)
+        _, plain = plain_vjp(x, cot, bd)     # the plain backward alone
+        out = kern()
+        torch.cuda.synchronize()
+        err = max(float((a.double() - w).abs().max())
+                  for a, w in zip(out, want)) / scale
+        dev_ms = kt.device_ms(kern, 50)
+        plain_dev = kt.device_ms(plain, 3)
+        ptx = {fn: u for fn, u in usage.items() if "su3_force_bwd" in fn
+               and ("IfE" if name == "float32" else "IdE") in fn}
+        res[name] = {
+            "max_rel_err": err, "largest_component": scale,
+            "ms": kt.cuda_ms(kern, 200, batches=5),
+            "plain_ms": kt.cuda_ms(plain, 10, batches=3),
+            "device_ms": dev_ms["device_ms_per_call"],
+            "device_kernels_per_call": dev_ms["kernels_per_call"],
+            "plain_device_ms": plain_dev["device_ms_per_call"],
+            "plain_kernels_per_call": plain_dev["kernels_per_call"],
+            # 8 calls a graph, as a train step of the train cell holds them
+            "graph_replay_ms": kt.graph_replay(kern, 8)[0],
+            "ptxas": ptx, **kt.su3_force_bwd_bound(lat, nb, dtype)}
+        emit({"phase": "su3_force_bwd_compare", "card": card,
+              "lattice": list(lat), "nchains": nb, "dtype": name,
+              "beta": "device scalar", **res[name]})
+        assert err <= tol, (name, res[name])
+    # a replayed train step of the train cell's configuration (no flowed
+    # loss): every force of its transition but the first wants a gradient
+    with tempfile.TemporaryDirectory(prefix="l2hmc_torch_smoke_") as out:
+        ex = build_experiment(st.MAIN_SU3 + [
+            "loss.charge_flow_nsteps=0", "steps.nera=1", "steps.nepoch=1",
+            "steps.test=1", f"outdir={out}"], group="SU3", device="cuda")
+    tr = ex.trainer
+    x = ex.setup()
+    for _ in range(2):          # the graph: an eager first step, a capture
+        tr.train_step(x, beta, ex.generator)
+    torch.cuda.synchronize()
+    kl.reset()
+    tr.train_step(x, beta, ex.generator)
+    torch.cuda.synchronize()
+    step = kl.counts("su3_force_fwd", "su3_force_bwd")
+    nlf = ex.cfg.dynamics.nleapfrog
+    (graph,) = [s for s in tr.graph_stats() if s["job"] == "train"]
+    emit({"phase": "su3_force_bwd_train_step", "card": card,
+          "launches_per_step": step,
+          "graph": {k: graph.get(k) for k in ("ops", "pool_bytes_added",
+                                              "launches")},
+          "ms": kt.cuda_ms(lambda: tr.train_step(x, beta, ex.generator), 3,
+                           warmup=0)})
+    assert step == {"su3_force_fwd": 2 * nlf + 1,
+                    "su3_force_bwd": 2 * nlf}, step
+    del ex, tr, x
+    torch.cuda.empty_cache()
+    return {"by_dtype": res, "train_step": step}
 
 
 def su3_link_phase(torch, card, usage) -> dict:
@@ -610,7 +725,7 @@ def graph_steps_only(torch, card) -> None:
         torch.cuda.empty_cache()
 
 
-def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
+def su3_phases(torch, card, u1_ncp, link_usage, force_usage) -> dict:
     """The SU(3) phases (8 in the list above). Returns the SU(3) kernels'
     numbers for the kernels line: their times and errors by dtype, and
     their launches in the 8^4 main path's run."""
@@ -620,6 +735,7 @@ def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
     from l2hmc_torch.utils.kernel_times import cuda_ms, profiled, raw_summary
     su3_compare(torch)
     force = su3_force_phase(torch, card)
+    bwd = su3_force_bwd_phase(torch, card, force_usage)
     link = su3_link_phase(torch, card, link_usage)
     ex, _ = su3_run(torch, ["steps.nera=1", "steps.nepoch=20",
                             "steps.test=10", "save=true"],
@@ -655,14 +771,16 @@ def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
         return {"train": lambda: t.train_step(x, beta, ex.generator),
                 "eval": eval_draw, "hmc": hmc_draw}
     steps = steps_of(tr)
-    # the force kernel's launches in one replayed step of each kind: in a
-    # train step, the transition's first force (at the incoming x, which
-    # carries no gradient) and the flowed loss's flow of the incoming x, 3
-    # a flow step (the flow of the proposal wants a gradient: plain); in
-    # an eval draw every force, 2 nleapfrog + 1 in the transition and 3 a
-    # flow step in its Wilson flow
+    # the force kernels' launches in one replayed step of each kind: in a
+    # train step every force, 2 nleapfrog + 1 in the transition and 3 a
+    # flow step in the flowed loss's flows, the incoming x's once and the
+    # proposal's three times (its forward, then the backward's recompute
+    # of the whole flow and of each checkpointed step), and a backward for
+    # each force that wants a gradient (all but the transition's first and
+    # the incoming x's flow); in an eval draw every force, 2 nleapfrog + 1
+    # in the transition and 3 a flow step in its Wilson flow, no backward
     nlf = cfg.dynamics.nleapfrog
-    per_step, link_per_step = {}, {}
+    per_step, bwd_per_step, link_per_step = {}, {}, {}
     for job, fn in steps.items():
         fn()
         torch.cuda.synchronize()
@@ -670,13 +788,17 @@ def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
         fn()
         torch.cuda.synchronize()
         per_step[job] = kl.counts()["su3_force_fwd"]
+        bwd_per_step[job] = kl.counts()["su3_force_bwd"]
         link_per_step[job] = kl.counts("su3_expm_fwd", "su3_reunit_fwd")
     train_graph = [s["launches"] for s in tr.graph_stats()
                    if s["job"] == "train"]
     emit({"phase": "su3_force_launches_per_step", "per_step": per_step,
-          "link_per_step": link_per_step, "train_graphs": train_graph})
-    assert per_step["train"] == 1 + 3 * cfg.loss.charge_flow_nsteps, \
-        per_step
+          "bwd_per_step": bwd_per_step, "link_per_step": link_per_step,
+          "train_graphs": train_graph})
+    flow_forces = 3 * cfg.loss.charge_flow_nsteps
+    assert per_step["train"] == 2 * nlf + 1 + 4 * flow_forces, per_step
+    assert bwd_per_step == {"train": 2 * nlf + flow_forces, "eval": 0,
+                            "hmc": 0}, bwd_per_step
     assert per_step["eval"] == 2 * nlf + 1 + 3 * cfg.flow_nsteps, per_step
     # an eval draw: 2 nleapfrog leapfrog steps of one expm and two reunits,
     # and 3 expm and one reunit a flow step, every one through the kernels
@@ -761,7 +883,9 @@ def su3_phases(torch, card, u1_ncp, link_usage) -> dict:
     emit({"phase": "train4dsu3", "seconds": time.perf_counter() - t0,
           "train_steps": 5})
     return {"by_dtype": force, "launches": main_launches["su3_force_fwd"],
-            "launches_per_step": per_step, "link": link,
+            "launches_per_step": per_step, "bwd": bwd,
+            "bwd_launches": main_launches["su3_force_bwd"],
+            "bwd_launches_per_step": bwd_per_step, "link": link,
             "link_launches": {k: main_launches[k] for k in link},
             "link_launches_per_step": link_per_step}
 
@@ -1135,6 +1259,7 @@ def main() -> int:
         return 1
     from l2hmc_torch.experiment import build_experiment
     from l2hmc_torch.ops.kernels import launches as kl
+    from l2hmc_torch.ops.kernels import su3_force as sk
     from l2hmc_torch.ops.kernels import su3_link as lk
     from l2hmc_torch.ops.kernels import u1_force as uk
     from l2hmc_torch.utils import kernel_times as kt
@@ -1150,16 +1275,22 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    lib, nvcc_out = uk.LIB.build(verbose=True)
+    lib, nvcc_out = uk.LIB.build()
     print(nvcc_out, file=sys.stderr, flush=True)
     emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    link_lib, link_out = lk.LIB.build(verbose=True)
+    link_lib, link_out = lk.LIB.build()
     print(link_out, file=sys.stderr, flush=True)
     link_usage = kt.ptxas_usage(link_out)
     emit({"phase": "build", "library": os.path.relpath(link_lib, ROOT),
           "seconds": time.perf_counter() - t0, "ptxas": link_usage})
+    t0 = time.perf_counter()
+    force_lib, force_out = sk.LIB.build()
+    print(force_out, file=sys.stderr, flush=True)
+    force_usage = kt.ptxas_usage(force_out)
+    emit({"phase": "build", "library": os.path.relpath(force_lib, ROOT),
+          "seconds": time.perf_counter() - t0, "ptxas": force_usage})
     if sys.argv[1:] == ["graph_steps"]:
         graph_steps_only(torch, card)
         print(card, flush=True)
@@ -1418,7 +1549,7 @@ def main() -> int:
     u1_ncp = st.u1_ncp_row(tr.dynamics, nb, calls=8 * nlf)
     del ex, tr, x, xe, steps, prof
     torch.cuda.empty_cache()
-    su3 = su3_phases(torch, card, u1_ncp, link_usage)
+    su3 = su3_phases(torch, card, u1_ncp, link_usage, force_usage)
     su3_algebra_phase(torch)
     parallel_phases(torch, uk)
     records_phase(torch, uk)
@@ -1468,6 +1599,23 @@ def main() -> int:
         "float64": {k: f64[k] for k in (
             "max_abs_err", "trace_err_per_plaquette", "ms", "plain_ms",
             "bound_ms", "device_ms", "graph_replay_ms")}})
+    # the SU(3) force's backward at the train cell's shape, float32 and
+    # float64; its launches in the 8^4 main path's run and a train step
+    f32, f64 = (su3["bwd"]["by_dtype"][d] for d in ("float32", "float64"))
+    keys = ("max_rel_err", "ms", "plain_ms", "bound_ms", "device_ms",
+            "plain_device_ms", "plain_kernels_per_call", "graph_replay_ms",
+            "ptxas")
+    rows.append({
+        "name": "su3_force_bwd", "route": "cuda",
+        "source": "l2hmc_torch/csrc/su3_force.cu",
+        "replaces": "no TPU kernel: autodiff of plain jnp at "
+                    + replaces("force_and_traces", "su3_comp.py"),
+        "launches": su3["bwd_launches"],
+        "launches_per_step": su3["bwd_launches_per_step"],
+        "train_cell_step": su3["bwd"]["train_step"],
+        "bound_by": f32["bound_by"], "library_ms": None,
+        **{k: f32[k] for k in keys},
+        "float64": {k: f64[k] for k in keys}})
     # the SU(3) link maps at the draw's shape, float32 and float64; their
     # launches in the 8^4 main path's run
     for name, func in (("su3_expm_fwd", "expm"),

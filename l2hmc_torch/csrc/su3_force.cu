@@ -54,6 +54,38 @@
 // at one beta replays at whatever value it holds; where the caller gives a
 // number the pointer is null and the number comes as a kernel argument.
 //
+// The backward (su3_force_bwd: two kernels a call, su3_force_bwd_plaq and
+// su3_force_bwd_link) serves the calls that want a gradient of the links,
+// as the autograd.Function of ops/kernels/su3_force.py. It replaces no TPU
+// kernel either: the JAX package differentiates the plain `jnp` version
+// with autodiff, which XLA fuses; PyTorch's autograd runs about 3,800
+// small kernels a call for it. It returns the VJP of the plain version
+// (ops/su3_comp.py `force_and_traces_plain`) with respect to the links,
+// exactly as that version is written, so on links off the group too. For
+// the force cotangent G and the trace cotangent t (per chain; either may
+// be absent), with Mb = beta/3 projectTAH(G) (projectTAH is an orthogonal
+// projection, its own adjoint; Mb is anti-hermitian, Mb^ = -Mb):
+//   Pb_uv(n) = Mb_u(n) - Mb_v(n) + t I - U_v(n) Mb_u(n+v) U_v(n)^
+//            + U_u(n) Mb_v(n+u) U_u(n)^                     (u > v, pass 1)
+// is the cotangent of the plaquette P_uv(n) (its four force terms and the
+// trace), and with Pb_vu = Pb_uv^, P_vu = P_uv^, for each link and its
+// three other directions nu (pass 2):
+//   Ub_mu(n) = sum_nu  Pb_munu(n) U_nu(n) U_mu(n+nu) U_nu(n+mu)^
+//            + U_nu(m)^ Pb_munu(m)^ U_mu(m) U_nu(m+mu)        (m = n - nu)
+//            + (P_munu(n)^ - P_munu(n)) U_mu(n) Mb_nu(n+mu)
+// (the last from the conjugations U_v^ P U_v, U_u^ P^ U_u of the down
+// terms). Bound: the links and G read once, the gradient written once and
+// t read, 3 x 18 values a link (at 8^4 x 8 float32: 28.3 MB, 8.45 us at
+// 3.35 TB/s); its 33 products a link (4 a plaquette in pass 1, 9 per
+// direction in pass 2) take 13.9 us at the float32 peak, so both count.
+// The design: gather, never scatter, so no floating-point atomics and no
+// reduction across blocks (t is only broadcast), and two launches on one
+// input give the same bits. Pass 1 writes Pb, 6 x 18 values a site (14
+// MB at 8^4 x 8 float32, which stays in the 50 MB L2 for pass 2); pass 2
+// is one thread a link, like the forward, each reading its neighbours'
+// links and two Pb a direction from L1 and L2 and keeping every product
+// in registers. Without G, Pb is t I and the Mb terms are skipped.
+//
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // caller's stream and returns cudaGetLastError(); it switches the device
 // only if the current one is not the tensors', and launches one kernel, so
@@ -66,6 +98,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// Threads a block of the backward's two kernels.
+constexpr int kBwdThreads = 128;
 
 // Blocks of the current launch that have finished their partials.
 __device__ unsigned int g_blocks_done = 0;
@@ -299,6 +333,185 @@ su3_force_fwd_kernel(const T* __restrict__ re, const T* __restrict__ im,
   }
 }
 
+// beta / 3 times projectTAH of the force cotangent of link l (contiguous
+// planes): anti-hermitian to the bit, as the forward's projection is.
+template <typename T>
+__device__ __forceinline__ M3<T> tah_cotangent(const T* __restrict__ g_re,
+                                               const T* __restrict__ g_im,
+                                               int L, int l, T b3) {
+  const M3<T> g = load(g_re, g_im, L, 1, l);
+  const T tim = (g.im[0] + g.im[4] + g.im[8]) / T(3);
+  M3<T> m;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int k = 3 * i + j, kt = 3 * j + i;
+      T zi = T(0.5) * (g.im[k] + g.im[kt]);
+      if (i == j) zi -= tim;
+      m.re[k] = b3 * (T(0.5) * (g.re[k] - g.re[kt]));
+      m.im[k] = b3 * zi;
+    }
+  }
+  return m;
+}
+
+template <typename T>
+__device__ __forceinline__ void sub_from(M3<T>& acc, const M3<T>& m) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    acc.re[k] -= m.re[k];
+    acc.im[k] -= m.im[k];
+  }
+}
+
+// The plaquette cotangents Pb: value k (re 0-8, im 9-17) of plane p (u > v,
+// p = u (u - 1) / 2 + v, plaq_traces' order) at site-and-chain r lies at
+// [(k 6 + p) sites + r], sites = V nb.
+template <typename T>
+__device__ __forceinline__ M3<T> load_plane(const T* __restrict__ pbar,
+                                            int sites, int plane, int r) {
+  M3<T> m;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    m.re[k] = __ldg(pbar + (static_cast<size_t>(k) * 6 + plane) * sites + r);
+    m.im[k] =
+        __ldg(pbar + (static_cast<size_t>(9 + k) * 6 + plane) * sites + r);
+  }
+  return m;
+}
+
+// Pass 1: one thread a plaquette (plane, site, chain), chain fastest.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+su3_force_bwd_plaq_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                          int pitch, const T* __restrict__ g_re,
+                          const T* __restrict__ g_im,
+                          const T* __restrict__ g_tr, T* __restrict__ pbar,
+                          const T* __restrict__ beta_ptr, T beta_value,
+                          int nt, int nx, int ny, int nz, int nb) {
+  const int ext[4] = {nt, nx, ny, nz};
+  const int V = nt * nx * ny * nz;
+  const int sites = V * nb;
+  const int L = 4 * sites;
+  const int i = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (i >= 6 * sites) return;  // below 2^31: the launcher checks
+  const int plane = i / sites;
+  const int r = i - plane * sites;
+  const int c = r % nb;
+  const Site n(r / nb, ext);
+  const int u = plane < 1 ? 1 : (plane < 3 ? 2 : 3);
+  const int v = plane - u * (u - 1) / 2;
+  auto link = [&](int d, int site) { return (d * V + site) * nb + c; };
+
+  const T t = g_tr ? __ldg(g_tr + c) : T(0);
+  M3<T> pb;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    pb.re[k] = k % 4 == 0 ? t : T(0);
+    pb.im[k] = T(0);
+  }
+  if (g_re) {
+    const T b3 = (beta_ptr ? __ldg(beta_ptr) : beta_value) / T(3);
+    add_to(pb, tah_cotangent(g_re, g_im, L, link(u, n.s), b3));
+    sub_from(pb, tah_cotangent(g_re, g_im, L, link(v, n.s), b3));
+    const M3<T> uv = load(re, im, L, pitch, link(v, n.s));
+    sub_from(pb, mul<false, true>(
+                     mul<false, false>(
+                         uv, tah_cotangent(g_re, g_im, L,
+                                           link(u, n.shift(n.s, v, 1)), b3)),
+                     uv));
+    const M3<T> uu = load(re, im, L, pitch, link(u, n.s));
+    add_to(pb, mul<false, true>(
+                   mul<false, false>(
+                       uu, tah_cotangent(g_re, g_im, L,
+                                         link(v, n.shift(n.s, u, 1)), b3)),
+                   uu));
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    pbar[(static_cast<size_t>(k) * 6 + plane) * sites + r] = pb.re[k];
+    pbar[(static_cast<size_t>(9 + k) * 6 + plane) * sites + r] = pb.im[k];
+  }
+}
+
+// Pass 2: one thread a link, consecutive threads on consecutive L, as in
+// the forward; the gradient is written contiguous.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+su3_force_bwd_link_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                          int pitch, const T* __restrict__ g_re,
+                          const T* __restrict__ g_im,
+                          const T* __restrict__ pbar, T* __restrict__ x_re,
+                          T* __restrict__ x_im,
+                          const T* __restrict__ beta_ptr, T beta_value,
+                          int nt, int nx, int ny, int nz, int nb) {
+  const int ext[4] = {nt, nx, ny, nz};
+  const int V = nt * nx * ny * nz;
+  const int sites = V * nb;
+  const int L = 4 * sites;
+  const int l = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (l >= L) return;
+  const int c = l % nb;
+  const int rest = l / nb;
+  const int mu = rest / V;
+  const Site n(rest - mu * V, ext);
+  auto link = [&](int d, int site) { return (d * V + site) * nb + c; };
+  const T b3 = (beta_ptr ? __ldg(beta_ptr) : beta_value) / T(3);
+
+  const M3<T> U = load(re, im, L, pitch, l);
+  M3<T> acc;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) acc.re[k] = acc.im[k] = T(0);
+#pragma unroll 1
+  for (int nu = 0; nu < 4; ++nu) {
+    if (nu == mu) continue;
+    // Pb_munu is the stored plane's where mu > nu, its adjoint where not
+    const bool adj = mu < nu;
+    const int hi = adj ? nu : mu, lo = adj ? mu : nu;
+    const int plane = hi * (hi - 1) / 2 + lo;
+    const int n_mu = n.shift(n.s, mu, 1);
+    // S = U_nu(n) U_mu(n+nu) U_nu(n+mu)^, so that P_munu(n) = U S^
+    const M3<T> S = mul<false, true>(
+        mul<false, false>(load(re, im, L, pitch, link(nu, n.s)),
+                          load(re, im, L, pitch,
+                               link(mu, n.shift(n.s, nu, 1)))),
+        load(re, im, L, pitch, link(nu, n_mu)));
+    const M3<T> pb = load_plane(pbar, sites, plane, n.s * nb + c);
+    add_to(acc, adj ? mul<true, false>(pb, S) : mul<false, false>(pb, S));
+    if (g_re) {
+      const M3<T> P = mul<false, true>(U, S);
+      M3<T> D;  // P^ - P
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int k = 3 * i + j, kt = 3 * j + i;
+          D.re[k] = P.re[kt] - P.re[k];
+          D.im[k] = -P.im[kt] - P.im[k];
+        }
+      }
+      add_to(acc, mul<false, false>(
+                      mul<false, false>(D, U),
+                      tah_cotangent(g_re, g_im, L, link(nu, n_mu), b3)));
+    }
+    // U_nu(m)^ Pb_munu(m)^ U_mu(m) U_nu(m+mu), m = n - nu
+    const int m = n.shift(n.s, nu, -1);
+    const M3<T> pm = load_plane(pbar, sites, plane, m * nb + c);
+    const M3<T> um = load(re, im, L, pitch, link(nu, m));
+    const M3<T> w = adj ? mul<true, false>(um, pm) : mul<true, true>(um, pm);
+    add_to(acc, mul<false, false>(
+                    mul<false, false>(w, load(re, im, L, pitch, link(mu, m))),
+                    load(re, im, L, pitch, link(nu, n.shift(m, mu, 1)))));
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const size_t at = static_cast<size_t>(k) * L + l;
+    x_re[at] = acc.re[k];
+    x_im[at] = acc.im[k];
+  }
+}
+
 // Makes `device` current for the scope if it is not already.
 class DeviceScope {
  public:
@@ -344,6 +557,44 @@ int launch(const void* re, const void* im, int pitch, void* f_re, void* f_im,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_bwd(const void* re, const void* im, int pitch, const void* g_re,
+               const void* g_im, const void* g_tr, void* pbar,
+               long long pbar_len, void* x_re, void* x_im,
+               const void* beta_ptr, double beta_value, int nt, int nx,
+               int ny, int nz, int nb, int device, void* stream) {
+  if (nt < 1 || nx < 1 || ny < 1 || nz < 1 || nb < 1 || pitch < 1 ||
+      (g_re == nullptr) != (g_im == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long sites = 1LL * nt * nx * ny * nz * nb;
+  if (6 * sites > 0x7fffffffLL - kBwdThreads || pbar_len < 18 * 6 * sites) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* beta = static_cast<const T*>(beta_ptr);
+  su3_force_bwd_plaq_kernel<T>
+      <<<static_cast<unsigned>((6 * sites + kBwdThreads - 1) / kBwdThreads),
+         kBwdThreads, 0, s>>>(
+          static_cast<const T*>(re), static_cast<const T*>(im), pitch,
+          static_cast<const T*>(g_re), static_cast<const T*>(g_im),
+          static_cast<const T*>(g_tr), static_cast<T*>(pbar), beta,
+          static_cast<T>(beta_value), nt, nx, ny, nz, nb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  su3_force_bwd_link_kernel<T>
+      <<<static_cast<unsigned>((4 * sites + kBwdThreads - 1) / kBwdThreads),
+         kBwdThreads, 0, s>>>(
+          static_cast<const T*>(re), static_cast<const T*>(im), pitch,
+          static_cast<const T*>(g_re), static_cast<const T*>(g_im),
+          static_cast<const T*>(pbar), static_cast<T*>(x_re),
+          static_cast<T*>(x_im), beta, static_cast<T>(beta_value), nt, nx,
+          ny, nz, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -371,6 +622,30 @@ int su3_force_fwd_f64(const void* re, const void* im, int pitch, void* f_re,
   return launch<double>(re, im, pitch, f_re, f_im, tr, partial, partial_len,
                         beta_ptr, beta_value, nt, nx, ny, nz, nb, device,
                         stream);
+}
+
+// The VJP of the force and traces with respect to the links: g_re and g_im
+// (the force cotangent, contiguous) both null or neither, g_tr (nb) may be
+// null; pbar is scratch of 18 x 6 x V nb values; x_re, x_im are written
+// contiguous.
+int su3_force_bwd_f32(const void* re, const void* im, int pitch,
+                      const void* g_re, const void* g_im, const void* g_tr,
+                      void* pbar, long long pbar_len, void* x_re, void* x_im,
+                      const void* beta_ptr, double beta_value, int nt, int nx,
+                      int ny, int nz, int nb, int device, void* stream) {
+  return launch_bwd<float>(re, im, pitch, g_re, g_im, g_tr, pbar, pbar_len,
+                           x_re, x_im, beta_ptr, beta_value, nt, nx, ny, nz,
+                           nb, device, stream);
+}
+
+int su3_force_bwd_f64(const void* re, const void* im, int pitch,
+                      const void* g_re, const void* g_im, const void* g_tr,
+                      void* pbar, long long pbar_len, void* x_re, void* x_im,
+                      const void* beta_ptr, double beta_value, int nt, int nx,
+                      int ny, int nz, int nb, int device, void* stream) {
+  return launch_bwd<double>(re, im, pitch, g_re, g_im, g_tr, pbar, pbar_len,
+                            x_re, x_im, beta_ptr, beta_value, nt, nx, ny, nz,
+                            nb, device, stream);
 }
 
 const char* su3_force_error_string(int code) {

@@ -23,7 +23,7 @@ recursively), so a stale build is never loaded and editing one library's
 source rebuilds that library only. Builds go to
 `build/l2hmc_torch_kernels/` of the checkout that holds the source
 (listed in .gitignore), through a temporary file renamed into place, so
-concurrent builds agree.
+concurrent builds agree; the compiler's output goes beside each build.
 """
 from __future__ import annotations
 
@@ -123,29 +123,37 @@ class Library:
         return (self.source.parents[2] / "build" / "l2hmc_torch_kernels"
                 / f"{self.source.stem}_{h.hexdigest()[:16]}.so")
 
-    def build(self, verbose: bool = False) -> tuple[Path, str]:
+    def build(self) -> tuple[Path, str]:
         """Compile the source unless its build exists. Returns (library
-        path, compiler output); verbose adds -Xptxas -v (registers,
-        shared memory, spills per kernel) to a fresh build."""
+        path, compiler output). The compiler runs with -Xptxas -v
+        (registers, shared memory, spills per kernel), and its output is
+        kept beside the library, so a build that exists reports it too
+        (empty where it was built without)."""
         path = self.path()
+        log = path.with_suffix(".txt")
         if path.exists():
-            return path, ""
+            return path, log.read_text() if log.exists() else ""
         path.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, str(self.source)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               str(self.source)]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
                     f"{r.stdout}{r.stderr}")
+            out = r.stdout + r.stderr
+            fd, tmp_log = tempfile.mkstemp(suffix=".txt", dir=path.parent)
+            with os.fdopen(fd, "w") as f:
+                f.write(out)
+            os.replace(tmp_log, log)
             os.replace(tmp, path)     # atomic: concurrent builds agree
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-        return path, r.stdout + r.stderr
+        return path, out
 
     def load(self) -> ctypes.CDLL:
         """Build if needed, load the library and resolve its entry points

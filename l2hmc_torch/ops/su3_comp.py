@@ -518,22 +518,27 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
+def _card_dtype(x: F3) -> bool:
+    """Whether x lies on the card in float32 or float64."""
+    return (_on_card(x.re) and _on_card(x.im)
+            and x.re.dtype in (torch.float32, torch.float64))
+
+
 def _no_grad_on_card(x: F3, *more) -> bool:
-    """Whether a CUDA kernel of the engine may take x: it lies on the card
-    in float32 or float64, and no autograd graph can be recorded through
-    the call (neither x nor a tensor of `more` wants a gradient)."""
-    if not (_on_card(x.re) and _on_card(x.im)
-            and x.re.dtype in (torch.float32, torch.float64)):
+    """Whether a CUDA kernel of the engine may take x: `_card_dtype`, and
+    no autograd graph can be recorded through the call (neither x nor a
+    tensor of `more` wants a gradient)."""
+    if not _card_dtype(x):
         return False
     wants = [t for t in (x.re, x.im, *more) if isinstance(t, torch.Tensor)]
     return not (torch.is_grad_enabled()
                 and any(t.requires_grad for t in wants))
 
 
-def _kernel_takes(x: F3, beta, lat, nb: int, roll) -> bool:
-    """Whether `force_and_traces` goes to the CUDA kernel: `_no_grad_on_card`
-    of the links and beta, and the roll is the engine's own periodic one."""
-    if not _no_grad_on_card(x, beta):
+def _kernel_takes(x: F3, lat, nb: int, roll) -> bool:
+    """Whether `force_and_traces` goes to the CUDA kernels: `_card_dtype`,
+    and the roll is None or the engine's own periodic one."""
+    if not _card_dtype(x):
         return False
     return roll is None or getattr(roll, "periodic", None) == (
         tuple(int(n) for n in lat), int(nb))
@@ -543,16 +548,18 @@ def _kernel_takes(x: F3, beta, lat, nb: int, roll) -> bool:
 def force_and_traces(x: F3, beta, lat, nb: int, roll=None):
     """(force, plaq_re_sum per chain) for the Wilson action.
 
-    On the card, where no gradient can be asked of the call and `roll` is
-    None or the engine's own periodic roll (`make_roll`), one launch of
-    the hand-written kernel (ops/kernels/su3_force.py) computes both;
-    everywhere else (the CPU, a differentiated call, a foreign roll such
+    On the card, where `roll` is None or the engine's own periodic roll
+    (`make_roll`), the hand-written kernels (ops/kernels/su3_force.py)
+    compute both through an autograd.Function: one forward launch, and
+    where the links want a gradient a backward kernel that returns the
+    plain version's VJP. beta is a non-trainable scalar there: a beta that
+    wants a gradient raises. Everywhere else (the CPU, a foreign roll such
     as parallel/halo.py's) `force_and_traces_plain` does, unchanged."""
-    if _kernel_takes(x, beta, lat, nb, roll):
+    if _kernel_takes(x, lat, nb, roll):
         re, im = x
         if su3_force.pitch(re, im) is None:
             re, im = re.contiguous(), im.contiguous()
-        f_re, f_im, tr = su3_force.force_and_traces(re, im, beta, lat, nb)
+        f_re, f_im, tr = su3_force.force_and_traces_ad(re, im, beta, lat, nb)
         return F3(f_re, f_im), tr
     return force_and_traces_plain(x, beta, lat, nb, roll)
 

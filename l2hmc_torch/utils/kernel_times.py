@@ -117,6 +117,19 @@ def su3_force_bound(lat, nb: int, dtype) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def su3_force_bwd_bound(lat, nb: int, dtype) -> dict:
+    """The least time one su3_force_bwd call on `nb` chains of lattice
+    `lat` could take: the links and the force's cotangent read and the
+    gradient written once (18 values a link each), the per-chain trace
+    cotangents read, at the memory rate (bytes alone, as
+    perfbench/metrics/su3_force_bwd_roofline.train.py reads it)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    links = 4 * math.prod(lat) * nb
+    nbytes = (3 * 18 * links + nb) * size
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
 def su3_link_bound(name: str, lat, nb: int, dtype) -> dict:
     """`bound` for one launch of an SU(3) link kernel over the 4 V nb
     links of `nb` chains of lattice `lat`: each matrix read once and
@@ -244,18 +257,30 @@ def raw_summary(prof) -> dict:
     return {"kernels": kernels, "host": host}
 
 
+def per_call(kern: dict, reps: int) -> dict:
+    """Device ms and kernels per call from {kernel: (count, device us)} of
+    reps calls that each launch the same kernels. Each kernel's time is
+    its mean over the records kept times its launches a call (its count
+    over reps, rounded, at least one), so a record the profiler dropped
+    takes no time from the call; `dropped_records` counts those."""
+    calls = {k: max(1, round(c / reps)) for k, (c, _) in kern.items()}
+    n = sum(calls.values())
+    return {"device_ms_per_call": sum(us / c * calls[k]
+                                      for k, (c, us) in kern.items()) / 1e3,
+            "kernels_per_call": n,
+            "dropped_records": n * reps - sum(c for c, _ in kern.values())}
+
+
 def device_ms(fn, reps: int) -> dict:
-    """Device time and kernel count per call of fn, from the profiler. The
-    profiler now and then drops a kernel's record (a count that is no
-    multiple of reps): such a window is taken again, at most twice."""
+    """`per_call` of reps calls of fn, from the profiler. The profiler now
+    and then drops a kernel's record (a count that is no multiple of
+    reps): such a window is taken again, at most twice."""
     for _ in range(3):
         kern = device_kernels(profiled(fn, reps))
         count = sum(c for c, _ in kern.values())
         if count and count % reps == 0:
             break
-    return {"device_ms_per_call": sum(us for _, us in kern.values())
-            / reps / 1e3,
-            "kernels_per_call": sum(c for c, _ in kern.values()) / reps}
+    return per_call(kern, reps)
 
 
 def graph_replay(step, launches: int, replays: int = 50):

@@ -86,12 +86,14 @@ def _device(fn, reps: int) -> tuple:
     events (a flow step is ~10^4 events a call)."""
     for _ in range(3):
         # the profiler now and then drops records (a count that is no
-        # multiple of reps): such a window is taken again
+        # multiple of reps): such a window is taken again, and the last
+        # one's dropped records take no time from the call (`per_call`)
         kern = kt.raw_summary(kt.profiled(fn, reps))["kernels"]
         count = sum(c for c, _ in kern.values())
         if count and count % reps == 0:
             break
-    return sum(us for _, us in kern.values()) / reps / 1e3, count / reps
+    got = kt.per_call(kern, reps)
+    return got["device_ms_per_call"], got["kernels_per_call"]
 
 
 def _row(fn, nbytes: int, ops: float, rdtype, reps: int, calls) -> dict:

@@ -17,10 +17,11 @@ def clean():
 
 def test_every_kernel_is_registered_and_each_module_reads_its_own(clean):
     assert set(launches.counts()) >= {"u1_force_fwd", "u1_force_bwd",
-                                      "su3_force_fwd"}
+                                      "su3_force_fwd", "su3_force_bwd"}
     launches.add("su3_force_fwd", 3)
     launches.add("u1_force_bwd")
-    assert su3_force.launch_counts() == {"su3_force_fwd": 3}
+    assert su3_force.launch_counts() == {"su3_force_fwd": 3,
+                                         "su3_force_bwd": 0}
     assert u1_force.launch_counts() == {"u1_force_fwd": 0,
                                         "u1_force_bwd": 1}
     u1_force.reset_launch_counts()

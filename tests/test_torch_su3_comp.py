@@ -315,23 +315,56 @@ def _halo_roll():
     return make_sharded_comp_roll(None, LAT, NB)
 
 
-@pytest.mark.parametrize("case", ["cpu", "x_wants_grad", "beta_wants_grad",
-                                  "halo_roll", "unmarked_roll"])
+@pytest.fixture
+def bwd_calls(monkeypatch):
+    """The backward kernel's entry replaced by a recorder that returns the
+    plain version's autograd VJP; the list of its calls' (force cotangent
+    given, trace cotangent given, beta)."""
+    from l2hmc_torch.ops.kernels import su3_force
+    calls = []
+
+    def fake(re, im, g_re, g_im, g_tr, beta, lat, nb):
+        calls.append((g_re is not None, g_tr is not None, beta))
+        with torch.enable_grad():
+            xr = re.detach().requires_grad_()
+            xi = im.detach().requires_grad_()
+            f, tr = tc.force_and_traces_plain(tc.F3(xr, xi), beta, lat, nb)
+            pairs = [(o, g) for o, g in ((f.re, g_re), (f.im, g_im),
+                                         (tr, g_tr)) if g is not None]
+            return torch.autograd.grad([o for o, _ in pairs], (xr, xi),
+                                       [g for _, g in pairs])
+
+    monkeypatch.setattr(su3_force, "force_and_traces_bwd", fake)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["cpu", "beta_wants_grad", "halo_roll",
+                                  "unmarked_roll", "cpu_x_wants_grad",
+                                  "x_and_beta_want_grad",
+                                  "halo_roll_x_wants_grad",
+                                  "unmarked_roll_x_wants_grad",
+                                  "cpu_beta_wants_grad"])
 def test_force_and_traces_keeps_the_plain_version(monkeypatch, kernel_calls,
-                                                  case):
-    """On the CPU, where a gradient is wanted, or with a roll that is not
-    the engine's own periodic one, the kernel is not taken and the plain
-    version runs unchanged."""
+                                                  bwd_calls, case):
+    """On the CPU, or with a roll that is not the engine's own periodic
+    one, the kernels are not taken and the plain version runs unchanged,
+    whether or not the links or beta want a gradient (where they do, it
+    reaches them). On the card a beta that wants a gradient raises: the
+    kernels take beta as a non-trainable scalar, and no caller
+    differentiates by it."""
     x, beta, roll = _links(), 2.3, None
-    if case != "cpu":
+    if not case.startswith("cpu"):
         monkeypatch.setattr(tc, "_on_card", lambda t: True)
-    if case == "x_wants_grad":
+    x_grad = case.endswith("x_wants_grad") or case == "x_and_beta_want_grad"
+    if x_grad:
         x = tc.F3(x.re.requires_grad_(), x.im)
-    elif case == "beta_wants_grad":
+    beta_grad = case.endswith("beta_wants_grad") \
+        or case == "x_and_beta_want_grad"
+    if beta_grad:
         beta = torch.tensor(2.3, dtype=torch.float64, requires_grad=True)
-    elif case == "halo_roll":
+    elif case.startswith("halo_roll"):
         roll = _halo_roll()
-    elif case == "unmarked_roll":
+    elif case.startswith("unmarked_roll"):
         own = tc.make_roll(LAT, NB)
 
         def roll(a, shift, axis):
@@ -341,34 +374,46 @@ def test_force_and_traces_keeps_the_plain_version(monkeypatch, kernel_calls,
 
     def recording_plain(*args, **kw):
         plain_calls.append(args[4] if len(args) > 4 else kw.get("roll"))
-        if case == "halo_roll":        # no mesh here: never roll with it
+        if case.startswith("halo_roll"):   # no mesh here: never roll with it
             return None
         return plain(*args, **kw)
 
     monkeypatch.setattr(tc, "force_and_traces_plain", recording_plain)
+    # a mark of another lattice is not the engine's roll of this one
+    assert not tc._kernel_takes(x, LAT, NB, tc.make_roll(LAT, NB + 1))
+    if beta_grad and not case.startswith("cpu"):
+        with pytest.raises(ValueError, match="non-trainable"):
+            tc.force_and_traces(x, beta, LAT, NB, roll)
+        assert kernel_calls == [] and plain_calls == []
+        return
     out = tc.force_and_traces(x, beta, LAT, NB, roll)
     assert kernel_calls == [] and plain_calls == [roll]
-    # a mark of another lattice is not the engine's roll of this one
-    assert not tc._kernel_takes(x, beta, LAT, NB, tc.make_roll(LAT, NB + 1))
-    if case == "x_wants_grad":
-        assert out[0].re.requires_grad
-    if case == "cpu":
+    if case.startswith("cpu"):
         want = plain(x, beta, LAT, NB)
         _close_f(out[0], want[0], 0)
-        _close(out[1], want[1].numpy(), 0)
+        _close(out[1], want[1].detach().numpy(), 0)
+    if beta_grad:
+        out[0].re.sum().backward()
+        assert beta.grad is not None
+    if x_grad and out is not None:
+        assert out[0].re.requires_grad
+        out[0].re.sum().backward()
+        assert x.re.grad is not None and bwd_calls == []
 
 
 @pytest.mark.parametrize("case", ["no_grad", "grad_but_no_input_wants_it",
                                   "own_roll", "beta_device_scalar",
-                                  "complex_views", "transposed_views"])
+                                  "complex_views", "transposed_views",
+                                  "x_wants_grad"])
 def test_force_and_traces_takes_the_kernel_on_the_card(link_kernels,
                                                        kernel_calls, case):
     """With the device check faked: under no_grad (or where no input wants
     a gradient, as at a transition's first force) with roll None or the
-    engine's own roll, one kernel call gives the pair. Views of one complex
-    lattice reach it as they are (pitch 2); a layout it does not read is
-    made contiguous first. (HMC's link update takes the faked expm
-    kernel.)"""
+    engine's own roll, one kernel call gives the pair; where the links
+    want a gradient, the autograd.Function's forward is that one call.
+    Views of one complex lattice reach it as they are (pitch 2); a layout
+    it does not read is made contiguous first. (HMC's link update takes
+    the faked expm kernel.)"""
     link_kernels.card()
     x, beta, roll, pitch = _links(), 2.3, None, 1
     if case == "own_roll":
@@ -381,15 +426,18 @@ def test_force_and_traces_takes_the_kernel_on_the_card(link_kernels,
     elif case == "transposed_views":
         x = tc.F3(x.re.transpose(0, 1).contiguous().transpose(0, 1),
                   x.im.transpose(0, 1).contiguous().transpose(0, 1))
-    if case == "grad_but_no_input_wants_it":
+    elif case == "x_wants_grad":
+        x = tc.F3(x.re.requires_grad_(), x.im)
+    if case in ("grad_but_no_input_wants_it", "x_wants_grad"):
         f, tr = tc.force_and_traces(x, beta, LAT, NB, roll)
     else:
         with torch.no_grad():
             f, tr = tc.force_and_traces(x, beta, LAT, NB, roll)
     assert kernel_calls == [(beta, LAT, NB, pitch)]
+    assert f.re.requires_grad == (case == "x_wants_grad")
     want = tc.force_and_traces_plain(x, beta, LAT, NB)
     _close_f(f, want[0], 0)
-    _close(tr, want[1].numpy(), 0)
+    _close(tr, want[1].detach().numpy(), 0)
     # the flow and HMC reach it through their own roll
     with torch.no_grad():
         tc.hmc_trajectory(x, tc.F3(0.1 * x.re, 0.1 * x.im), 2.3, 0.01, 1,
@@ -397,6 +445,59 @@ def test_force_and_traces_takes_the_kernel_on_the_card(link_kernels,
     assert len(kernel_calls) == 3
     assert link_kernels.names() == ["expm"]
 
+
+
+@pytest.mark.parametrize("case", ["force", "trace", "both", "force_re"])
+def test_force_and_traces_gradient_on_the_card_is_the_plain_one(
+        monkeypatch, kernel_calls, bwd_calls, case):
+    """With the device check faked, links that want a gradient take the
+    autograd.Function: one forward kernel call, one backward call with the
+    cotangents that were used (None for an output left unused; the other
+    half of the force zeros where one half alone was used), and gradients
+    bit for bit those of the plain version, on links off the group."""
+    x = _links()
+    g = torch.Generator().manual_seed(7)
+    g_re, g_im = (torch.randn(x.re.shape, generator=g, dtype=torch.float64)
+                  for _ in range(2))
+    g_tr = torch.randn((NB,), generator=g, dtype=torch.float64)
+
+    def grads(fn):
+        xr = x.re.clone().requires_grad_()
+        xi = x.im.clone().requires_grad_()
+        f, tr = fn(tc.F3(xr, xi), 2.3, LAT, NB)
+        loss = 0.0
+        if case != "trace":
+            loss = loss + (f.re * g_re).sum()
+        if case in ("force", "both"):
+            loss = loss + (f.im * g_im).sum()
+        if case in ("trace", "both"):
+            loss = loss + (tr * g_tr).sum()
+        loss.backward()
+        return xr.grad, xi.grad
+
+    want = grads(tc.force_and_traces_plain)
+    monkeypatch.setattr(tc, "_on_card", lambda t: True)
+    got = grads(tc.force_and_traces)
+    assert len(kernel_calls) == 1
+    assert bwd_calls == [(case != "trace", case in ("trace", "both"), 2.3)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_force_and_traces_kernel_gradient_cannot_be_differentiated(
+        monkeypatch, kernel_calls, bwd_calls):
+    """The backward is once-differentiable: a second derivative through
+    the Function raises (no caller takes one; the c1 != 0 force
+    differentiates `action`)."""
+    monkeypatch.setattr(tc, "_on_card", lambda t: True)
+    x = _links()
+    x = tc.F3(x.re.requires_grad_(), x.im.requires_grad_())
+    f, _ = tc.force_and_traces(x, 2.3, LAT, NB)
+    (g,) = torch.autograd.grad((f.re * f.re).sum(), (x.re,),
+                               create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
+    assert len(bwd_calls) == 1
 
 class _LinkKernels:
     """su3_link's two entries replaced by recorders that return the plain

@@ -252,3 +252,19 @@ def test_kernel_bound_counts_each_tensor_once(kind, nbytes):
     b = kt.bound(kind, 2048, 16, 16, torch.float32)
     assert b["bytes"] == nbytes and b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("case", ["whole", "dropped"])
+def test_kernel_time_per_call_survives_dropped_records(case):
+    """Each kernel's device time a call is its mean over the records the
+    profiler kept times its launches a call: a dropped record takes no
+    time from the call and no launch from its count."""
+    from l2hmc_torch.utils import kernel_times as kt
+    # 50 calls of two kernels of 40 us and 20 us a launch
+    kern = {"plaq": (50, 50 * 40.0), "link": (50, 50 * 20.0)}
+    if case == "dropped":
+        kern["plaq"] = (45, 45 * 40.0)
+    got = kt.per_call(kern, 50)
+    assert got["device_ms_per_call"] == pytest.approx(0.060)
+    assert got["kernels_per_call"] == 2
+    assert got["dropped_records"] == (5 if case == "dropped" else 0)
